@@ -13,7 +13,8 @@ setup(
                 '(JAX/XLA/Pallas)',
     python_requires='>=3.10',
     packages=find_packages(exclude=['tests*']),
-    package_data={'stable_ts_tpu': ['native/*.cpp']},
+    package_data={'stable_ts_tpu': ['native/*.cpp'],
+                  'stable_ts_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     install_requires=[
         'numpy',
         'jax',
@@ -22,6 +23,9 @@ setup(
     extras_require={
         'train': ['optax'],
         'torch-checkpoints': ['torch'],  # only for reading OpenAI .pt files
+        # the PyTorch + CUDA port (stable_ts_tpu_torch); its kernels build
+        # with nvcc at first use
+        'torch': ['torch'],
     },
     entry_points={
         'console_scripts': ['stable-ts-tpu=stable_ts_tpu.cli:cli'],
