@@ -1,10 +1,12 @@
 """stable_ts_tpu_torch: the PyTorch + CUDA port of stable_ts_tpu.
 
-The greedy ``transcribe`` path (log-mel -> encoder -> greedy decode under
-the timestamp grammar -> cross-attention DTW word timing -> SRT) runs in
-PyTorch on one NVIDIA Hopper GPU, with hand-written CUDA kernels where the
-JAX package runs Pallas kernels on the TPU (flash attention, self- and
-cross-attention decode, the DTW cost). The framework-free host code
+The ``transcribe`` path (log-mel -> encoder -> language detection ->
+greedy, sampled (temperature ladder with best_of) or beam-search decoding
+under the timestamp grammar -> cross-attention DTW word timing -> SRT) runs
+in PyTorch on one NVIDIA Hopper GPU, with hand-written CUDA kernels where
+the JAX package runs Pallas kernels on the TPU (flash attention, self- and
+cross-attention decode with their beam and window-group entries, the
+greedy logit epilogue, the DTW cost). The framework-free host code
 (results, regrouping, silence suppression, text output, the tokenizer) is
 shared with ``stable_ts_tpu``, which this package imports without
 importing jax.

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
-Nothing includes PyTorch's headers, so a cold build takes seconds, not
-minutes. The build runs at first use, from the package's own sources, into
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into ONE
+shared library with a plain C interface, loaded with ``ctypes``. Nothing
+includes PyTorch's headers, so a cold build takes seconds, not minutes.
+The build runs at first use, from the package's own sources, into
 ``_build/<hash of the sources and flags>/`` inside the package directory;
 a changed source gets a fresh directory, an unchanged one reuses the
 library.
@@ -29,7 +30,7 @@ _PKG_DIR = Path(__file__).resolve().parent
 _SRC_DIR = _PKG_DIR / 'csrc'
 _BUILD_ROOT = _PKG_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
+              '-Xcompiler', '-fPIC', '-lineinfo')
 
 # name of each kernel wrapper -> launches since the last reset
 launches = collections.Counter()
@@ -49,8 +50,22 @@ _SIGNATURES = {
                          _LL, _LL, _LL, _P],
     'cross_attn_decode': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _LL, _LL, _LL, _P],
+    # ... as self_attn_decode, then anc, anc row stride, g, stream
+    'self_attn_decode_beam': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _LL, _LL, _LL, _P, _LL, _I, _P],
+    # ... as cross_attn_decode (batch = windows), then g, stream
+    'cross_attn_decode_group': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _LL, _LL, _LL, _I, _P],
+    # x, emb, suppress, silence, silence row stride, flags, scratch, out,
+    # dtype, B, d, V, ts_begin, eot, grammar, stream
+    'logit_epilogue': [_P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _P],
     # x, cost, B, N, M, stream
     'dtw_cost': [_P, _P, _I, _I, _I, _P],
+}
+# entry points that return something other than a cudaError_t
+_RESTYPES = {
+    'epilogue_partial_floats': ([_I, _I], ctypes.c_longlong),  # (B, V) -> floats
 }
 
 _LIB = None
@@ -109,12 +124,28 @@ def build() -> Path:
     nvcc = find_nvcc()
     cus, _ = _sources()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f'libkernels.{os.getpid()}.so'
-    cmd = [nvcc, *NVCC_FLAGS, f'-I{_SRC_DIR}', '-o', str(tmp), *map(str, cus)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{proc.stderr}')
+    tag = os.getpid()
+    objs = [out_dir / f'{cu.stem}.{tag}.o' for cu in cus]
+    compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, f'-I{_SRC_DIR}', '-c',
+                                  '-o', str(obj), str(cu)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+                for cu, obj in zip(cus, objs)]
+    errors = []
+    for cu, proc in zip(cus, compiles):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f'{cu.name} ({proc.returncode}):\n{err}')
+    if errors:
+        raise RuntimeError('nvcc failed: ' + '\n'.join(errors))
+    tmp = out_dir / f'libkernels.{tag}.so'
+    link = subprocess.run([nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f'nvcc link failed ({link.returncode}):\n{link.stderr}')
     os.replace(tmp, lib_path)
+    for obj in objs:
+        obj.unlink()
     return lib_path
 
 
@@ -128,6 +159,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in _RESTYPES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _LIB = handle
     return _LIB
 

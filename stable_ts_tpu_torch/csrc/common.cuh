@@ -38,6 +38,25 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
   for (int i = 0; i < Vec16<T>::N; ++i) out[i] = to_float(e[i]);
 }
 
+// Elements of T in one 8-byte vector, and one 8-byte load (8-byte aligned).
+template <typename T> struct Vec8 { static constexpr int N = 8 / sizeof(T); };
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec8<T>::N; ++i) out[i] = to_float(e[i]);
+}
+
+// Let a kernel take ``bytes`` of dynamic shared memory: a block whose static
+// plus dynamic shared memory passes 48 KB needs this opt-in.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 struct MaxOp {
   __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };

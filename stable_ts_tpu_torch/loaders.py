@@ -13,7 +13,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .models.whisper.decoding import DecodingOptions, decode as _decode
+from .models.whisper.decoding import (DecodingOptions, decode as _decode,
+                                      detect_language as _detect_language)
 from .models.whisper.dims import ModelDimensions, tiny_test_dims
 from .models.whisper.model import (Whisper, encoder_apply, init_params,
                                    resolve_device)
@@ -90,26 +91,29 @@ class WhisperTorch:
 
     def decode(self, mel_or_features, options: Optional[DecodingOptions] = None,
                ts_silence_mask=None, language: Optional[str] = None,
-               with_features: bool = True, **kwargs):
+               with_features: bool = True,
+               generator: Optional[torch.Generator] = None, **kwargs):
+        """Decode windows (mels or encoder features) with ``options`` or the
+        DecodingOptions ``kwargs``. A multilingual model with no language
+        detects it from the first window. ``generator`` draws the samples
+        at temperature > 0 (None: a fresh one seeded with 0)."""
         if options is None:
             options = DecodingOptions(**kwargs)
         language = options.language or language
+        x = self._on_device(mel_or_features)
         if language is None:
-            if self.is_multilingual:
-                raise NotImplementedError(
-                    'language detection is still to be ported to '
-                    'stable_ts_tpu_torch (ROADMAP.md): pass language=')
-            language = 'en'
+            language = self.detect_language(x)[0][0] if self.is_multilingual else 'en'
         tokenizer = self.get_tokenizer(language=language, task=options.task)
-        return _decode(self.params, self.dims, tokenizer,
-                       self._on_device(mel_or_features), options,
+        return _decode(self.params, self.dims, tokenizer, x, options,
                        ts_silence_mask=ts_silence_mask,
-                       with_features=with_features)
+                       with_features=with_features, generator=generator)
 
     def detect_language(self, mel):
-        raise NotImplementedError(
-            'language detection is still to be ported to stable_ts_tpu_torch '
-            '(ROADMAP.md): pass language=')
+        """(language codes, probability maps) per window of ``mel`` (a mel
+        or encoder features)."""
+        tokenizer = self.get_tokenizer(language=None, task=None)
+        return _detect_language(self.params, self.dims, tokenizer,
+                                self._on_device(mel))
 
     def transcribe(self, audio, **kwargs):
         from .transcribe import transcribe_stable

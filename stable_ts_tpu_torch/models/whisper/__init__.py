@@ -1,4 +1,4 @@
-"""Whisper in PyTorch: model, greedy decoding, word timing.
+"""Whisper in PyTorch: model, decoding, word timing.
 
 The tokenizer, language and alignment-head tables are framework-free files
 of stable_ts_tpu, but importing them through ``stable_ts_tpu.models.whisper``

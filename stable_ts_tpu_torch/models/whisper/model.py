@@ -8,10 +8,12 @@ their JAX counterparts so a reader finds each one's twin:
 - :func:`decoder_apply`: the teacher-forced pass of the word-timing step,
   with flash cross-attention and the selected heads' raw QK recomputed in
   f32 and stored as bf16 (model.py:377-383, 601-607);
-- :func:`decoder_prefill` and :func:`decoder_step`: the greedy decoder
-  over an int8 row cache that the step updates IN PLACE (JAX threads it
-  through the scan carry instead), with the decode-attention kernels
-  (``ops/self_attn.py``, ``ops/cross_attn.py``);
+- :func:`decoder_prefill` and :func:`decoder_step`: the incremental
+  decoder over an int8 row cache that the step updates IN PLACE (JAX
+  threads it through the scan carry instead), with the decode-attention
+  kernels (``ops/self_attn.py``, ``ops/cross_attn.py``); the step also
+  serves best_of groups and beams (``q_per_kv``, ``anc``) and can return
+  the hidden state for the logit epilogue (``ops/logit_epilogue.py``);
 - :func:`precompute_cross_kv_t`: per-layer cross-attention K/V once per
   window, in the row-major layout the cross kernel reads.
 
@@ -328,11 +330,22 @@ def precompute_cross_kv_t(decoder: TextDecoder, xa: torch.Tensor,
 
 
 def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
-                 cross_kv: dict, cache: dict, fused_qkv: List) -> torch.Tensor:
+                 cross_kv: dict, cache: dict, fused_qkv: List,
+                 q_per_kv: int = 1, anc: Optional[torch.Tensor] = None,
+                 return_hidden: bool = False) -> torch.Tensor:
     """One decode step at position ``pos``. tokens (B, 1). Writes this
     position's int8 K/V rows into ``cache`` in place, then attends keys
     j <= pos with the self-decode kernel and the window's cross K/V with
-    the cross-decode kernel. Returns logits (B, V) f32."""
+    the cross-decode kernel. Returns logits (B, V) f32, or with
+    ``return_hidden`` the post-LN state (B, d) that the logit epilogue
+    consumes.
+
+    ``q_per_kv``: consecutive rows sharing one window of ``cross_kv`` (the
+    beams or best_of candidates of a window; cross K/V is stored once per
+    window). ``anc``: the beam layout's (B, C) int32 ancestry table — row
+    r attends its window group's cache row ``anc[r, j]`` at position j;
+    ``anc[:, pos]`` must be each row's own local index, since this step
+    writes each row's K/V in place."""
     n_head = decoder.n_head
     d = decoder.token_emb.shape[1]
     q_scale = (d // n_head) ** -0.5
@@ -347,16 +360,17 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
             cache[name + 's'][layer, :, pos] = sc
         ctx = self_attn_decode(q_proj.float() * q_scale, cache['k'][layer],
                                cache['v'][layer], cache['ks'][layer],
-                               cache['vs'][layer], pos, n_head)
+                               cache['vs'][layer], pos, n_head, anc=anc,
+                               q_per_kv=q_per_kv)
         x = x + blk.attn.out(ctx[:, None].to(x.dtype))
         ca = blk.cross_attn
         q = ca.q(blk.cross_attn_ln(x))[:, 0].float() * q_scale
         ctx = cross_attn_decode(q, cross_kv['kv'], cross_kv['sc'], layer,
-                                cross_kv['s'], n_head)
+                                cross_kv['s'], n_head, q_per_kv=q_per_kv)
         x = x + ca.out(ctx[:, None].to(x.dtype))
         x = x + blk.mlp(blk.mlp_ln(x))
-    x = decoder.ln(x)
-    return decoder.vocab_logits(x[:, 0])
+    x = decoder.ln(x)[:, 0]
+    return x if return_hidden else decoder.vocab_logits(x)
 
 
 # -- random weights ------------------------------------------------------------------------

@@ -90,9 +90,7 @@ def transcribe_stable(
         **decode_options,
 ) -> WhisperResult:
     """Transcribe ``audio`` with stabilized word-level timestamps; the same
-    parameters and behavior as stable_ts_tpu's ``transcribe_stable``.
-    Greedy decoding only: a temperature > 0 rung raises
-    ``NotImplementedError`` when it is reached, so pass ``temperature=0``."""
+    parameters and behavior as stable_ts_tpu's ``transcribe_stable``."""
     if extra_models:
         raise NotImplementedError('extra_models are still to be ported to '
                                   'stable_ts_tpu_torch (ROADMAP.md)')

@@ -88,3 +88,115 @@ def test_dtw_kernel_matches_twin_exactly(cuda, shape):
     for bi in range(shape[0]):
         assert (dtw_jumps(got[bi].cpu().numpy(), n, m)
                 == dtw_jumps(ref[bi].cpu().numpy(), n, m)).all()
+
+
+@pytest.mark.parametrize('quant', [True, False])
+@pytest.mark.parametrize('windows,g', [(1, 5), (3, 2), (2, 8), (1, 11)])
+def test_cross_group_kernel_matches_twin(cuda, quant, windows, g):
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops.cross_attn import (cross_attn_decode,
+                                                    cross_attn_decode_ref)
+    layers, s, d, n_head = 2, 1500, 1280, 20
+    kv = _randn(cuda, layers, windows, 2, s, d)
+    sc = torch.ones((layers, windows, 2, s), device='cuda')
+    if quant:
+        kv, sc = quantize_rows(kv)
+    q = _randn(cuda, windows * g, d) * 0.125
+    before = _build.launches['cross_attn_decode_group']
+    got = cross_attn_decode(q, kv, sc, 1, 1450, n_head, q_per_kv=g)
+    torch.cuda.synchronize()
+    assert _build.launches['cross_attn_decode_group'] == before + 1
+    ref = cross_attn_decode_ref(q, kv[1, :, 0], kv[1, :, 1], sc[1, :, 0],
+                                sc[1, :, 1], 1450, n_head, q_per_kv=g)
+    # same bf16 rounding points; a weight may round to the neighbouring bf16
+    assert _rel(got, ref) <= 1e-3
+
+
+def _anc(gen, rows, g, ctx, pos, pattern):
+    local = torch.arange(rows, device='cuda') % g
+    if pattern == 'own':
+        anc = local[:, None].expand(rows, ctx)
+    elif pattern == 'first':
+        anc = torch.zeros((rows, ctx), dtype=torch.long, device='cuda')
+    else:
+        anc = torch.randint(0, g, (rows, ctx), generator=gen, device='cuda')
+    anc = anc.to(torch.int32).contiguous()
+    anc[:, pos] = local.to(torch.int32)
+    return anc
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.float32])
+@pytest.mark.parametrize('g,pos,pattern', [(5, 200, 'random'), (2, 0, 'own'),
+                                           (3, 447, 'first'), (1, 37, 'own')])
+def test_self_decode_beam_kernel_matches_twin(cuda, dtype, g, pos, pattern):
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops.self_attn import (self_attn_decode,
+                                                   self_attn_decode_ref)
+    rows, ctx, d, n_head = 2 * g, 448, 1280, 20
+    k, v = _randn(cuda, rows, ctx, d), _randn(cuda, rows, ctx, d)
+    if dtype == torch.int8:
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+    else:
+        ks = vs = None
+    q = _randn(cuda, rows, d) * 0.125
+    anc = _anc(cuda, rows, g, ctx, pos, pattern)
+    before = _build.launches['self_attn_decode_beam']
+    got = self_attn_decode(q, k, v, ks, vs, pos, n_head, anc=anc, q_per_kv=g)
+    torch.cuda.synchronize()
+    assert _build.launches['self_attn_decode_beam'] == before + 1
+    ref = self_attn_decode_ref(q, k, v, ks, vs, pos, n_head, anc=anc, q_per_kv=g)
+    assert _rel(got, ref) <= 1e-5
+
+
+def test_self_decode_beam_kernel_raises_beyond_its_limits(cuda):
+    from stable_ts_tpu_torch.ops.self_attn import self_attn_decode
+    d, n_head = 128, 2
+    k = _randn(cuda, 4, 8200, d)
+    q = _randn(cuda, 4, d)
+    anc = torch.zeros((4, 8200), dtype=torch.int32, device='cuda')
+    with pytest.raises(ValueError, match='at most'):
+        self_attn_decode(q, k, k, None, None, 8195, n_head, anc=anc, q_per_kv=2)
+    with pytest.raises(ValueError, match='divide'):
+        self_attn_decode(q, k, k, None, None, 10, n_head, anc=anc, q_per_kv=3)
+    with pytest.raises(ValueError, match='anc'):
+        self_attn_decode(q, k, k, None, None, 10, n_head, anc=anc.long(), q_per_kv=2)
+
+
+def _epilogue_inputs(gen, b, v, d, ts_begin, dtype, silence):
+    x = _randn(gen, b, d, dtype=dtype)
+    emb = (_randn(gen, v, d) * 0.05).to(dtype)
+    suppress = torch.where(torch.rand(v, generator=gen, device='cuda') < 0.05,
+                           -1e9, 0.0)
+    sil = None
+    if silence:
+        sil = torch.zeros((b, v), device='cuda')
+        banned = torch.rand((b, v - ts_begin), generator=gen, device='cuda') < 0.3
+        sil[:, ts_begin:] = torch.where(banned, -1e9, 0.0)
+    rows = torch.arange(b, device='cuda')
+    text_ban = rows % 3 == 1
+    ts_ban = rows % 3 == 2
+    has_ts = rows % 2 == 0
+    floor = (rows * 97) % ((v - ts_begin) // 2)
+    flags = torch.stack([text_ban.long(), ts_ban.long(), has_ts.long(), floor], 1)
+    return x, emb, suppress, sil, flags.int()
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,silence,grammar', [(1, True, True), (5, True, True),
+                                               (9, False, True), (3, True, False)])
+def test_logit_epilogue_kernel_matches_twin(cuda, dtype, b, silence, grammar):
+    from stable_ts_tpu_torch.ops.logit_epilogue import (fused_logit_aggregates,
+                                                        fused_logit_aggregates_ref)
+    v, d, ts_begin, eot = 51866, 1280, 50365, 50257
+    args = _epilogue_inputs(cuda, b, v, d, ts_begin, dtype, silence)
+    before = _build.launches['logit_epilogue']
+    got = fused_logit_aggregates(*args, ts_begin, eot, grammar)
+    torch.cuda.synchronize()
+    assert _build.launches['logit_epilogue'] == before + 1
+    ref = fused_logit_aggregates_ref(*args, ts_begin, eot, grammar)
+    # maxima and sums within 1e-3 relative (f32 sums in another order);
+    # argmax ids equal
+    for col in (0, 2, 3, 5):
+        assert ((got[:, col] - ref[:, col]).abs()
+                <= 1e-3 * ref[:, col].abs().clamp_min(1.0)).all(), col
+    assert torch.equal(got[:, [1, 4]], ref[:, [1, 4]])

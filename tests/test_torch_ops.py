@@ -1,7 +1,9 @@
 """stable_ts_tpu_torch ops against stable_ts_tpu on the CPU: log-mel, the
 median filter, the DTW cost (the kernel's plain twin vs the JAX scan and
-the Pallas kernel in interpret mode) and the DTW traceback; plus the
-port's restated dims table and decoding dataclasses."""
+the Pallas kernel in interpret mode), the DTW traceback, and the greedy
+logit epilogue (the kernel's twin vs the Pallas kernel in interpret mode
+and vs ``logit_aggregates_xla``, and the selection from its aggregates);
+plus the port's restated dims table and decoding dataclasses."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -181,3 +183,109 @@ def test_legacy_head_weights_match_jax(max_qk_len):
     assert got.shape == ref.shape == (3, 13, 1500)
     # f32 softmax and moments summed in another order
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+# -- logit epilogue --------------------------------------------------------------------
+
+EPI_V, EPI_D, EPI_TS, EPI_EOT = 1900, 256, 1500, 1400
+
+
+def _epilogue_case(seed, b):
+    """Seeded x, embedding, suppress vector, silence mask and grammar flags
+    ((4, B) f32 as JAX takes them), with rows of every grammar state."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, EPI_D)) * 0.2).astype(np.float32)
+    emb = (rng.standard_normal((EPI_V, EPI_D)) * 0.2).astype(np.float32)
+    suppress = np.where(rng.random(EPI_V) < 0.05, -1e9, 0.0).astype(np.float32)
+    sil = np.zeros((b, EPI_V), np.float32)
+    sil[:, EPI_TS:] = np.where(rng.random((b, EPI_V - EPI_TS)) < 0.3, -1e9, 0.0)
+    flags = np.stack([rng.random(b) < 0.4, rng.random(b) < 0.4,
+                      rng.random(b) < 0.6,
+                      rng.integers(0, (EPI_V - EPI_TS) // 2, b)]).astype(np.float32)
+    flags[1] = np.where(flags[0] > 0, 0.0, flags[1])   # the bans exclude each other
+    return x, emb, suppress, sil, flags
+
+
+def _check_aggregates(got, ref):
+    """Argmax ids equal; maxima and sums of exponentials within 1e-5
+    relative in f32 (the sums run in another order)."""
+    np.testing.assert_array_equal(got[:, [1, 4]], ref[:, [1, 4]])
+    np.testing.assert_allclose(got[:, [0, 3]], ref[:, [0, 3]], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[:, [2, 5]], ref[:, [2, 5]], rtol=1e-5)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('with_grammar', [True, False])
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_epilogue_twin_matches_pallas_interpret(seed, with_grammar, dtype):
+    from stable_ts_tpu.ops.logit_epilogue import (fused_logit_aggregates as jax_agg,
+                                                  logit_aggregates_xla,
+                                                  prepare_epilogue_operands)
+    from stable_ts_tpu_torch.ops.logit_epilogue import (fused_logit_aggregates,
+                                                        grammar_filter)
+    x, emb, suppress, sil, flags = _epilogue_case(seed, b=6)
+    jdt = jnp.dtype(dtype)
+    prepared = prepare_epilogue_operands(jnp.asarray(emb, jdt), jnp.asarray(suppress),
+                                         jnp.asarray(sil), ts_begin=EPI_TS,
+                                         block_v=512)
+    ref = np.asarray(jax_agg(jnp.asarray(x), prepared, jnp.asarray(flags),
+                             ts_begin=EPI_TS, eot=EPI_EOT,
+                             with_grammar=with_grammar, interpret=True))
+    emb_t = torch.from_numpy(emb).to(getattr(torch, dtype))
+    flags_t = torch.from_numpy(flags.T.astype(np.int32).copy())
+    got = fused_logit_aggregates(torch.from_numpy(x), emb_t, torch.from_numpy(suppress),
+                                 torch.from_numpy(sil), flags_t, EPI_TS, EPI_EOT,
+                                 with_grammar).numpy()
+    _check_aggregates(got, ref)
+    # and against JAX's reduction of the same filtered logits
+    logits = torch.from_numpy(x).to(emb_t.dtype).float() @ emb_t.float().t()
+    filtered = grammar_filter(logits, torch.from_numpy(suppress),
+                              torch.from_numpy(sil), flags_t, EPI_TS, EPI_EOT,
+                              with_grammar)
+    _check_aggregates(got, np.asarray(logit_aggregates_xla(
+        jnp.asarray(filtered.numpy()), EPI_TS)))
+
+
+def test_epilogue_without_silence_mask_adds_nothing():
+    from stable_ts_tpu_torch.ops.logit_epilogue import fused_logit_aggregates
+    x, emb, suppress, _, flags = _epilogue_case(3, b=2)
+    args = [torch.from_numpy(a) for a in (x, emb, suppress)]
+    flags_t = torch.from_numpy(flags.T.astype(np.int32).copy())
+    zeros = torch.zeros((2, EPI_V))
+    assert torch.equal(
+        fused_logit_aggregates(*args, None, flags_t, EPI_TS, EPI_EOT),
+        fused_logit_aggregates(*args, zeros, flags_t, EPI_TS, EPI_EOT))
+
+
+def test_logit_aggregates_keep_the_first_maximum():
+    """Equal maxima: the lowest id wins in both parts, as jnp.argmax; an
+    all-banned part sums its -1e9 entries."""
+    from stable_ts_tpu.ops.logit_epilogue import logit_aggregates_xla
+    from stable_ts_tpu_torch.ops.logit_epilogue import logit_aggregates
+    f = np.full((2, 12), 0.5, np.float32)
+    f[0, [3, 7, 9]] = 2.0          # ties in the text part (ids < 8)...
+    f[0, [10, 11]] = 3.0           # ...and in the timestamp part
+    f[1, 8:] = -1e9                # every timestamp banned
+    got = logit_aggregates(torch.from_numpy(f), 8).numpy()
+    np.testing.assert_array_equal(got[:, [1, 4]], [[3, 10], [0, 8]])
+    np.testing.assert_allclose(got, np.asarray(logit_aggregates_xla(jnp.asarray(f), 8)),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize('with_grammar', [True, False])
+@pytest.mark.parametrize('seed', [3, 4])
+def test_select_from_aggregates_matches_jax(seed, with_grammar):
+    """The next token and its logprob from the aggregates, with the
+    force-timestamp rule, equal to JAX's."""
+    from stable_ts_tpu.ops.logit_epilogue import logit_aggregates_xla
+    from stable_ts_tpu.ops.logit_epilogue import select_from_aggregates as jax_select
+    from stable_ts_tpu_torch.ops.logit_epilogue import select_from_aggregates
+    x, emb, _, _, _ = _epilogue_case(seed, b=16)
+    logits = x @ emb.T
+    logits[:, EPI_TS:] += np.linspace(-12, 4, 16, dtype=np.float32)[:, None]
+    agg = np.array(logit_aggregates_xla(jnp.asarray(logits), EPI_TS))
+    ref_tok, ref_lp = jax_select(jnp.asarray(agg), with_grammar=with_grammar)
+    tok, lp = select_from_aggregates(torch.from_numpy(agg), with_grammar)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ref_tok))
+    assert len(set((tok.numpy() >= EPI_TS).tolist())) == 2   # both parts chosen
+    np.testing.assert_allclose(lp.numpy(), np.asarray(ref_lp), rtol=1e-6, atol=1e-6)

@@ -4,9 +4,11 @@ model (weights converted with ``from_jax``) transcribes the same seeded
 
 JAX runs as its tests do off the TPU: the cross-attention decode kernel in
 interpret mode (STABLE_TS_TPU_CROSS=interpret) and the int8 self cache
-(STABLE_TS_TPU_SELFKV=1) through its XLA path, the port's configuration.
-Text and word-level SRT bytes must be equal, and every word's start and end
-within 0.021 s (one 20 ms frame plus rounding)."""
+(STABLE_TS_TPU_SELFKV=1) through its XLA path, the port's configuration,
+with its greedy logit epilogue off (the unfused filter chain) and in
+interpret mode (STABLE_TS_TPU_EPI); the port's greedy loop always takes
+the epilogue. Text and word-level SRT bytes must be equal, and every
+word's start and end within 0.021 s (one 20 ms frame plus rounding)."""
 import os
 import subprocess
 import sys
@@ -26,10 +28,12 @@ def _audio(seconds=40, seed=21):
             * 0.1).astype(np.float32)
 
 
+@pytest.mark.parametrize('epilogue', ['0', 'interpret'], ids=['epi_off', 'epi_interpret'])
 @pytest.mark.parametrize('kv_quant', [None, True], ids=['auto_float_kv', 'int8_kv'])
-def test_transcribe_matches_jax(kv_quant, monkeypatch):
+def test_transcribe_matches_jax(kv_quant, epilogue, monkeypatch):
     monkeypatch.setenv('STABLE_TS_TPU_CROSS', 'interpret')
     monkeypatch.setenv('STABLE_TS_TPU_SELFKV', '1')
+    monkeypatch.setenv('STABLE_TS_TPU_EPI', epilogue)
     from stable_ts_tpu.loaders import load_test_model as load_jax
     from stable_ts_tpu_torch.loaders import from_jax
     jax_model = load_jax(alignment_heads=HEADS)
@@ -62,6 +66,10 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
                                   verbose=None)
         srt = result.to_srt_vtt(word_level=True)
         assert isinstance(srt, str)
+        for kw in (dict(temperature=(0, 0.5), best_of=2, logprob_threshold=100),
+                   dict(temperature=0, beam_size=2)):
+            assert model.transcribe(audio, language='en', verbose=None,
+                                    **kw).segments
         assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
         assert 'stable_ts_tpu.models.whisper.model' not in sys.modules
         print('NO_JAX_OK')
@@ -88,9 +96,7 @@ def test_cuda_without_a_gpu_raises():
         WhisperTorch(tiny_test_dims(), cpu_params, device='cuda')
 
 
-@pytest.mark.parametrize('options', [
-    dict(temperature=0.2), dict(beam_size=5), dict(kv_quant=4)],
-    ids=['temperature', 'beam', 'int4_kv'])
+@pytest.mark.parametrize('options', [dict(kv_quant=4)], ids=['int4_kv'])
 def test_unported_decoding_options_raise(options):
     from stable_ts_tpu_torch.loaders import load_test_model
     model = load_test_model(seed=0)
@@ -99,12 +105,19 @@ def test_unported_decoding_options_raise(options):
         model.decode(mel, language='en', **options)
 
 
-def test_multilingual_without_language_raises():
-    from stable_ts_tpu_torch.loaders import WhisperTorch
+def test_multilingual_without_language_detects_it():
+    """A multilingual model given no language detects it (the 50257-entry
+    synthetic rank table puts the special tokens where Whisper has them)."""
     import dataclasses
+    from stable_ts_tpu_torch.loaders import WhisperTorch
     from stable_ts_tpu_torch.models.whisper.dims import tiny_test_dims
     from stable_ts_tpu_torch.models.whisper.model import init_params
     dims = dataclasses.replace(tiny_test_dims(), n_vocab=51865)
-    model = WhisperTorch(dims, init_params(dims), device='cpu')
-    with pytest.raises(NotImplementedError, match='language'):
-        model.decode(torch.zeros((80, 3000)))
+    ranks = {bytes([b]): b for b in range(256)}
+    ranks.update({b'\x00' + i.to_bytes(3, 'big'): i for i in range(256, 50257)})
+    model = WhisperTorch(dims, init_params(dims), device='cpu', ranks=ranks)
+    mel = torch.zeros((80, 3000))
+    (code,), probs = model.detect_language(mel)
+    assert code in probs[0] and probs[0][code] == max(probs[0].values())
+    (result,) = model.decode(mel, sample_len=4)
+    assert result.language == code
