@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
 """GPU smoke test of stable_ts_tpu_torch: builds the CUDA kernels, holds
-each against its plain PyTorch twin, then drives three paths on Whisper
+each against its plain PyTorch twin, then drives four paths on Whisper
 large-v3 (random bf16 weights from a seed, the canonical alignment heads,
 a synthetic rank table the size of the multilingual vocabulary) through
 ``WhisperTorch.transcribe``:
 
 - greedy: 75 s and 20 s with language='en', temperature=0 (the logit
   epilogue on every step);
-- beam: 30 s with no language (detect_language) and beam_size=5;
+- beam: 30 s with no language (detect_language) and beam_size=5 (the vocab
+  projection on every step);
 - ladder: 30 s on temperature=(0.0, 0.4, 0.8) with best_of=5 (random
-  weights fail every rung, so every rung runs).
+  weights fail every rung, so every rung runs);
+- dq: the same weights quantized to int8 on the card (``dq=True``), with
+  packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
+  and 30 s beam_size=5 with no language.
 
 The launch counts are reset before each path and read after it; the script
-fails unless each path launched the kernels it runs, all seven entries
+fails unless each path launched the kernels it runs, all eleven entries
 among them.
 
     python3 chip_smoke.py        # needs one CUDA GPU; exits non-zero on any failure
 
 The second-to-last line of stdout is a JSON object with each kernel's
-launches on the three paths, its error against its twin and both times;
-the last line is {"ok": true, "device": {...}}. Without a GPU, or without
-the package beside it, the script fails and prints no result.
+launches on the four paths, its error against its twin, its time, its
+twin's, the bound on its time (H100 SXM data sheet) and, where one PyTorch
+call computes the same function, that call's time; the last line is
+{"ok": true, "device": {...}}. Without a GPU, or without the package
+beside it, the script fails and prints no result.
 """
 import copy
 import json
@@ -35,6 +41,10 @@ sys.path.insert(0, HERE)
 SR = 16000
 MODEL = 'large-v3'
 HEADS_TINY = [(0, 1), (1, 0), (1, 1)]
+# NVIDIA's data sheet for one H100 SXM at 700 W: memory rate (bytes/s) and
+# dense peaks (operations/s) by operand type (f32: the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {'bf16': 989e12, 'f32': 67e12}
 
 
 def log(msg: str) -> None:
@@ -63,6 +73,26 @@ def rel_err(got, ref) -> tuple:
     return diff, diff / max(scale, 1e-30)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak for their type."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    if by_bytes >= by_ops:
+        return dict(bound_ms=by_bytes, bound_by='bytes')
+    return dict(bound_ms=by_ops, bound_by='operations')
+
+
+def entry(err, ms, plain, n_bytes, n_ops, kind, library_ms=None) -> dict:
+    """One kernel's numbers for the kernels line."""
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                **bound(n_bytes, n_ops, kind), library_ms=library_ms)
+
+
 def check(name: str, got, ref, tol: float, what: str) -> float:
     err, rel = rel_err(got, ref)
     ok = rel <= tol
@@ -76,6 +106,7 @@ def check(name: str, got, ref, tol: float, what: str) -> float:
 def kernel_checks(torch, results: dict) -> None:
     """Every kernel against its twin at the large-v3 shapes of the paths
     (bf16 activations, int8 caches) and at one f32 shape."""
+    import torch.nn.functional as F
     from stable_ts_tpu_torch.ops import cross_attn, dtw, flash_attn, self_attn
     dev = 'cuda'
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -99,10 +130,18 @@ def kernel_checks(torch, results: dict) -> None:
         err = check('flash_attn', got, ref, tol, what)
         ms = cuda_ms(lambda: flash_attn.flash_attention(q, k, v, h, scale))
         plain = cuda_ms(lambda: flash_attn.flash_attention_ref(q, k, v, h, scale))
-        log(f'[kernel] flash_attn {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
-        flash.append((err, ms, plain))
-    results['flash_attn'] = dict(max_abs_err=flash[0][0], ms=flash[0][1],
-                                 plain_ms=flash[0][2])
+        # the library call: PyTorch's fused attention on the same tensors
+        # viewed as (B, heads, T, d_head)
+        qh, kh, vh = (a.view(1, -1, h, d // h).transpose(1, 2) for a in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        # q, k and v read once, the output (q's shape) written once
+        numbers = entry(err, ms, plain, nbytes(q, k, v, q), 4 * t * 1500 * d,
+                        'bf16' if dtype == torch.bfloat16 else 'f32', lib)
+        log(f'[kernel] flash_attn {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms, '
+            f'scaled_dot_product_attention {lib:.4f} ms, bound '
+            f'{numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
+        flash.append(numbers)
+    results['flash_attn'] = flash[0]
 
     # D, self entry: one layer of the (32, 1, 256, 1280) int8 row cache, pos 200
     layers, ctx, pos = 32, 256, 200
@@ -128,7 +167,10 @@ def kernel_checks(torch, results: dict) -> None:
         plain = cuda_ms(lambda: self_attn.self_attn_decode_ref(*args), iters=200)
         log(f'[kernel] self_attn_decode {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
         if cdtype == torch.int8:
-            results['self_attn_decode'] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+            # keys 0..pos of one layer's K and V rows and their scales
+            n = pos + 1
+            results['self_attn_decode'] = entry(
+                err, ms, plain, 2 * n * (d + 4) + nbytes(q, got), 4 * n * d, 'f32')
 
     # D, cross entry: int8 K/V (32, 1, 2, 1500, 1280), s = 1500
     for what, quant in (('int8 kv (32,1,2,1500,1280)', True),
@@ -153,7 +195,8 @@ def kernel_checks(torch, results: dict) -> None:
             iters=200)
         log(f'[kernel] cross_attn_decode {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
         if quant:
-            results['cross_attn_decode'] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+            results['cross_attn_decode'] = entry(
+                err, ms, plain, nbytes(kv[7], sc[7], q, got), 4 * 1500 * d, 'bf16')
 
     # W: a (1, 226, 1500) attention-like cost (negated, median-filtered
     # z-scores of a softmax), the largest the timing pass hands it
@@ -183,7 +226,8 @@ def kernel_checks(torch, results: dict) -> None:
     ms = cuda_ms(lambda: dtw.dtw_cost(x))
     plain = cuda_ms(lambda: dtw.dtw_cost_ref(x), iters=3, warmup=1)
     log(f'[kernel] dtw_cost (1,226,1500): kernel {ms:.4f} ms, twin {plain:.4f} ms')
-    results['dtw_cost'] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    # an add and two minimums per cell
+    results['dtw_cost'] = entry(err, ms, plain, nbytes(x, got), 3 * n * m, 'f32')
 
     # D, cross group entry: g = 5 query rows on one window's int8 K/V
     from stable_ts_tpu_torch.models.whisper.model import quantize_rows
@@ -200,7 +244,8 @@ def kernel_checks(torch, results: dict) -> None:
     ms = cuda_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g), iters=200)
     plain = cuda_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=200)
     log(f'[kernel] cross_attn_decode_group {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
-    results['cross_attn_decode_group'] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    results['cross_attn_decode_group'] = entry(
+        err, ms, plain, nbytes(kv[7], sc[7], q, got), 4 * g * 1500 * d, 'bf16')
 
     # D, beam self entry: int8 cache (32, 5, 256, 1280), pos 200, a random
     # valid ancestry table (each row's own index at pos)
@@ -222,9 +267,18 @@ def kernel_checks(torch, results: dict) -> None:
     plain = cuda_ms(lambda: self_attn.self_attn_decode_ref(*args, anc=anc,
                                                            q_per_kv=rows), iters=200)
     log(f'[kernel] self_attn_decode_beam {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
-    results['self_attn_decode_beam'] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    # the cache rows this ancestry table reaches (each once), their scales,
+    # the table's keys 0..pos, q and the output
+    n = pos + 1
+    reached = sum(len(set(anc[:, j].tolist())) for j in range(n))
+    results['self_attn_decode_beam'] = entry(
+        err, ms, plain, 2 * reached * (d + 4) + nbytes(anc[:, :n], q, got),
+        4 * rows * n * d, 'f32')
 
     epilogue_checks(torch, results, randn, gen)
+    int4_cross_checks(torch, results, randn)
+    woq_checks(torch, results, randn)
+    vocab_checks(torch, results, randn)
 
 
 def epilogue_checks(torch, results: dict, randn, gen) -> None:
@@ -274,32 +328,135 @@ def epilogue_checks(torch, results: dict, randn, gen) -> None:
         plain = cuda_ms(lambda: epi.fused_logit_aggregates_ref(*args), iters=20)
         log(f'[kernel] logit_epilogue {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
         if b == 1:
-            results['logit_epilogue'] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+            results['logit_epilogue'] = entry(
+                err, ms, plain, nbytes(x, emb, suppress, sil, flags, got),
+                2 * b * v * d, 'bf16')
+
+
+def int4_cross_checks(torch, results: dict, randn) -> None:
+    """The packed int4 cross entries (g = 1 and g = 5) on one window's
+    (32, 1, 2, 1500, 1280) K/V on the int4 grid, against the twin fed the
+    unpacked values."""
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops import cross_attn
+    layers, d, h, s = 32, 1280, 20, 1500
+    vals, sc = quantize_rows(randn(layers, 1, 2, s, d), bits=4)
+    kv = cross_attn.pack_int4(vals)
+    for g, name in ((1, 'cross_attn_decode_int4'), (5, 'cross_attn_decode_group_int4')):
+        q = randn(g, d) * (d // h) ** -0.5
+        args = (q, kv, sc, 7, s, h)
+        ref_args = (q, vals[7, :, 0], vals[7, :, 1], sc[7, :, 0], sc[7, :, 1], s, h, g)
+        got = cross_attn.cross_attn_decode(*args, q_per_kv=g, bits=4)
+        ref = cross_attn.cross_attn_decode_ref(*ref_args)
+        torch.cuda.synchronize()
+        what = f'g={g} int4 kv (32,1,2,1500,1280) packed (32,1,2,1500,640)'
+        err = check(name, got, ref, 1e-3, what)
+        ms = cuda_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g, bits=4),
+                     iters=200)
+        plain = cuda_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=200)
+        log(f'[kernel] {name} {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
+        results[name] = entry(err, ms, plain, nbytes(kv[7], sc[7], q, got),
+                              4 * g * s * d, 'bf16')
+
+
+def woq_checks(torch, results: dict, randn) -> None:
+    """The weight-only int8 matmul at the dq paths' shapes: M = 1 and 5
+    (decode), 230 (the timing pass), 1500 (the encoder) for each (K, N) of
+    the decoder's fused qkv, out, fc1 and fc2 linears, bf16 x; one f32 x.
+    The kernel's f32 output (before the wrapper's cast) against the twin's:
+    the same exact products summed in another order."""
+    from stable_ts_tpu_torch.models.whisper.quantization import quantize_weight
+    from stable_ts_tpu_torch.ops import woq_matmul as woq
+    shapes = [(m, k, n, torch.bfloat16, 1e-3) for m in (1, 5, 230, 1500)
+              for k, n in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))]
+    shapes.append((230, 1280, 5120, torch.float32, 1e-5))
+    weights = {}
+    for m, k, n, dtype, tol in shapes:
+        if (k, n) not in weights:
+            weights[k, n] = quantize_weight(randn(n, k) * 0.02)
+        q, scale = weights[k, n]
+        x = randn(m, k, dtype=dtype)
+        got = woq._woq_cuda(x, q, scale)
+        ref = woq.woq_matmul_ref(x, q, scale)
+        torch.cuda.synchronize()
+        what = f'M={m} (K,N)=({k},{n}) {str(dtype)[6:]} x'
+        err = check('woq_matmul', got, ref, tol, what)
+        iters = 200 if m <= 5 else 20
+        ms = cuda_ms(lambda: woq._woq_cuda(x, q, scale), iters=iters)
+        plain = cuda_ms(lambda: woq.woq_matmul_ref(x, q, scale), iters=iters)
+        numbers = entry(err, ms, plain, nbytes(x, q, scale, got), 2 * m * n * k,
+                        'bf16' if dtype == torch.bfloat16 else 'f32')
+        extra = ''
+        if dtype == torch.bfloat16:
+            # the nearest library call, not the same function: its scales
+            # are in x's dtype and its output is bf16
+            scale_bf16 = scale.to(dtype)
+            near = cuda_ms(lambda: torch._weight_int8pack_mm(x, q, scale_bf16),
+                           iters=iters)
+            extra = f', torch._weight_int8pack_mm (bf16 scales) {near:.4f} ms'
+        log(f'[kernel] woq_matmul {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms'
+            f'{extra}, bound {numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
+        if (m, k, n) == (1, 1280, 5120):
+            results['woq_matmul'] = numbers
+
+
+def vocab_checks(torch, results: dict, randn) -> None:
+    """The vocab projection of the beam and sampled steps: x (M, 1280) bf16
+    against emb (51866, 1280) bf16, M = 1, 5, 16; f32 logits within 1e-4
+    relative to the largest (f32 sums of the same exact products)."""
+    from stable_ts_tpu_torch.ops import vocab_proj as vp
+    emb = (randn(51866, 1280) * 0.02).to(torch.bfloat16)
+    for m in (1, 5, 16):
+        x = randn(m, 1280, dtype=torch.bfloat16)
+        got = vp.vocab_proj(x, emb)
+        ref = vp.vocab_proj_ref(x, emb)
+        torch.cuda.synchronize()
+        what = f'M={m} emb (51866,1280) bf16'
+        err = check('vocab_proj', got, ref, 1e-4, what)
+        ms = cuda_ms(lambda: vp.vocab_proj(x, emb), iters=100)
+        plain = cuda_ms(lambda: vp.vocab_proj_ref(x, emb), iters=20)
+        # the library call: one bf16 product with f32 output
+        lib = cuda_ms(lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), iters=100)
+        numbers = entry(err, ms, plain, nbytes(x, emb, got), 2 * m * 51866 * 1280,
+                        'bf16', lib)
+        log(f'[kernel] vocab_proj {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms, '
+            f'torch.mm(out_dtype=float32) {lib:.4f} ms, bound '
+            f'{numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
+        if m == 5:
+            results['vocab_proj'] = numbers
 
 
 def tiny_parity(torch) -> None:
     """The tiny f32 model transcribes the same seeded audio alike on the
-    CPU (every op through its twin) and on the GPU (through the kernels)."""
+    CPU (every op through its twin) and on the GPU (through the kernels):
+    with float weights on int8 cross K/V, and quantized (dq) on packed int4
+    cross K/V."""
     import numpy as np
     from stable_ts_tpu_torch.loaders import WhisperTorch, load_test_model
-    cpu = load_test_model(seed=0, alignment_heads=HEADS_TINY)
-    gpu = WhisperTorch(cpu.dims, copy.deepcopy(cpu.params), device='cuda',
-                       name='test-tiny', ranks=cpu._ranks,
-                       alignment_heads=HEADS_TINY)
     audio = (np.random.default_rng(21).standard_normal(SR * 40) * 0.1
              ).astype(np.float32)
-    kw = dict(language='en', temperature=0, verbose=None, kv_quant=True)
-    rc, rg = cpu.transcribe(audio, **kw), gpu.transcribe(audio, **kw)
-    words_c = [(w.start, w.end) for s in rc.segments for w in s.words]
-    words_g = [(w.start, w.end) for s in rg.segments for w in s.words]
-    worst = max((max(abs(a[0] - b[0]), abs(a[1] - b[1]))
-                 for a, b in zip(words_c, words_g)), default=0.0)
-    ok = (rc.text == rg.text and len(words_c) == len(words_g) and worst <= 0.021)
-    log(f'[tiny] f32 tiny model, 40 s: CPU twins vs GPU kernels: text equal '
-        f'{rc.text == rg.text}, {len(words_c)} vs {len(words_g)} words, '
-        f'worst word-time gap {worst:.3f} s (bound 0.021) {"OK" if ok else "FAIL"}')
-    if not ok:
-        raise AssertionError('tiny model: GPU transcription differs from CPU')
+    for dq, kv_quant, what in ((False, True, 'f32 weights, int8 cross K/V'),
+                               (True, 4, 'int8 weights (dq), int4 cross K/V')):
+        cpu = load_test_model(seed=0, alignment_heads=HEADS_TINY, dq=dq)
+        gpu = WhisperTorch(cpu.dims, copy.deepcopy(cpu.params), device='cuda',
+                           name='test-tiny', ranks=cpu._ranks,
+                           alignment_heads=HEADS_TINY)
+        if gpu.quantized != dq:
+            raise AssertionError(f'tiny model: quantized {gpu.quantized} != {dq}')
+        kw = dict(language='en', temperature=0, verbose=None, kv_quant=kv_quant)
+        rc, rg = cpu.transcribe(audio, **kw), gpu.transcribe(audio, **kw)
+        words_c = [(w.start, w.end) for s in rc.segments for w in s.words]
+        words_g = [(w.start, w.end) for s in rg.segments for w in s.words]
+        worst = max((max(abs(a[0] - b[0]), abs(a[1] - b[1]))
+                     for a, b in zip(words_c, words_g)), default=0.0)
+        ok = (rc.text == rg.text and len(words_c) == len(words_g) > 0
+              and worst <= 0.021)
+        log(f'[tiny] tiny model, {what}, 40 s: CPU twins vs GPU kernels: text '
+            f'equal {rc.text == rg.text}, {len(words_c)} vs {len(words_g)} words, '
+            f'worst word-time gap {worst:.3f} s (bound 0.021) {"OK" if ok else "FAIL"}')
+        if not ok:
+            raise AssertionError(f'tiny model ({what}): GPU transcription differs '
+                                 'from CPU')
 
 
 def check_result(result, srt: str, duration: float) -> int:
@@ -365,9 +522,58 @@ def main() -> int:
     log(f'[model] {model} built in {time.perf_counter() - t0:.1f} s, '
         f'{len(model.alignment_heads)} alignment heads')
 
-    counts = drive_paths(torch, model)
-    if 'jax' in sys.modules:
-        raise AssertionError('jax was imported')
+    from stable_ts_tpu_torch.audio.synth import synth_speech_like
+    audio = synth_speech_like(155.0)
+    ladder = (0.0, 0.4, 0.8)
+    beam_clip = audio[95 * SR:125 * SR]
+    # (path, request label, clip, transcribe options, kernels the path must launch)
+    paths = [
+        ('greedy', [('75 s', audio[:75 * SR]), ('20 s', audio[75 * SR:95 * SR])],
+         dict(language='en', temperature=0),
+         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
+          'dtw_cost')),
+        ('beam', [('30 s, no language, beam_size=5', beam_clip)],
+         dict(temperature=0, beam_size=5),
+         ('flash_attn', 'self_attn_decode_beam', 'cross_attn_decode_group',
+          'vocab_proj', 'dtw_cost')),
+        ('ladder', [('30 s, temperature=(0.0, 0.4, 0.8), best_of=5',
+                     audio[125 * SR:155 * SR])],
+         dict(language='en', temperature=ladder, best_of=5),
+         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
+          'cross_attn_decode_group', 'vocab_proj', 'dtw_cost')),
+    ]
+    counts = drive_paths(torch, model, paths, ladder)
+
+    # -- the dq path: the same weights quantized on the card, int4 cross K/V -------------
+    from stable_ts_tpu_torch.models.whisper.quantization import quantized_bytes
+    float_bytes = quantized_bytes(model.params)
+    t0 = time.perf_counter()
+    dq_model = WhisperTorch(dims, model.params, device='cuda', name=MODEL + '-dq',
+                            ranks=ranks, alignment_heads=model.alignment_heads,
+                            dq=True)
+    del model   # its params are now dq_model's, quantized in place
+    torch.cuda.synchronize()
+    log(f'[model] dq: quantized on the card in {time.perf_counter() - t0:.1f} s, '
+        f'{float_bytes / 1e9:.3f} GB of parameters -> '
+        f'{quantized_bytes(dq_model.params) / 1e9:.3f} GB')
+    if not dq_model.quantized:
+        raise AssertionError('dq=True left the model unquantized')
+    dq_paths = [
+        ('dq', [('30 s greedy, language=en, kv_quant=4', beam_clip,
+                 dict(language='en', temperature=0, kv_quant=4)),
+                ('30 s, no language, beam_size=5, kv_quant=4', beam_clip,
+                 dict(temperature=0, beam_size=5, kv_quant=4))],
+         None,
+         ('flash_attn', 'woq_matmul', 'self_attn_decode', 'cross_attn_decode_int4',
+          'logit_epilogue', 'self_attn_decode_beam', 'cross_attn_decode_group_int4',
+          'vocab_proj', 'dtw_cost')),
+    ]
+    for name, n in drive_paths(torch, dq_model, dq_paths, ladder).items():
+        counts[name] = counts.get(name, 0) + n
+    loaded = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+                    or m == 'stable_ts_tpu' or m.startswith('stable_ts_tpu.'))
+    if loaded:
+        raise AssertionError(f'jax or stable_ts_tpu was imported: {loaded[:10]}')
 
     src = 'stable_ts_tpu_torch/csrc/'
     meta = {
@@ -386,6 +592,17 @@ def main() -> int:
                                     ' (q_per_kv > 1 branch, :108-142)'),
         'self_attn_decode_beam': (src + 'decode_attn.cu',
                                   'stable_ts_tpu/ops/self_attn.py:132 _kernel_beam'),
+        'cross_attn_decode_int4': (src + 'decode_attn.cu',
+                                   'stable_ts_tpu/ops/cross_attn.py:47 _kernel'
+                                   ' (bits=4 branch, :60-75)'),
+        'cross_attn_decode_group_int4': (src + 'decode_attn.cu',
+                                         'stable_ts_tpu/ops/cross_attn.py:47 _kernel'
+                                         ' (bits=4 and q_per_kv > 1 branches)'),
+        'woq_matmul': (src + 'woq_matmul.cu',
+                       'stable_ts_tpu/ops/woq_matmul.py:27 _kernel (int8_matmul :86)'),
+        'vocab_proj': (src + 'vocab_proj.cu',
+                       'stable_ts_tpu/ops/vocab_proj.py:34 _kernel'
+                       ' (vocab_logits_kernel :46)'),
     }
     kernels = [dict(name=name, route='cuda', source=meta[name][0],
                     replaces=meta[name][1], launches=counts.get(name, 0),
@@ -398,10 +615,10 @@ def main() -> int:
     return 0
 
 
-def drive_paths(torch, model) -> dict:
-    """Drive the greedy, beam and ladder paths on ``model``; returns the
-    kernel launches summed over the paths."""
-    from bench import synth_speech_like
+def drive_paths(torch, model, paths, ladder) -> dict:
+    """Drive ``paths`` on ``model``: each is (name, requests, options,
+    kernels it must launch), a request (label, clip) or (label, clip,
+    options). Returns the kernel launches summed over the paths."""
     from stable_ts_tpu_torch import _build
     # host-clock phase split (each phase ends in a device synchronize); the
     # decoder steps are counted at decoding.decoder_step
@@ -426,73 +643,59 @@ def drive_paths(torch, model) -> dict:
         steps[0] += 1
         return step_fn(*a, **kw)
 
-    step_fn = decoding.decoder_step
+    step_fn, word_fn = decoding.decoder_step, driver.add_word_timestamps
     decoding.decoder_step = counted_step
+    driver.add_word_timestamps = timed(word_fn, 'word_timing')
     model.embed_audio = timed(model.embed_audio, 'encode')
     model.detect_language = timed(model.detect_language, 'detect_language')
     model.decode = timed(model.decode, 'decode')
-    driver.add_word_timestamps = timed(driver.add_word_timestamps, 'word_timing')
-
-    audio = synth_speech_like(155.0)
-    ladder = (0.0, 0.4, 0.8)
-    # (path, request label, clip, transcribe options, kernels the path must launch)
-    paths = [
-        ('greedy', [('75 s', audio[:75 * SR]), ('20 s', audio[75 * SR:95 * SR])],
-         dict(language='en', temperature=0),
-         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
-          'dtw_cost')),
-        ('beam', [('30 s, no language, beam_size=5', audio[95 * SR:125 * SR])],
-         dict(temperature=0, beam_size=5),
-         ('flash_attn', 'self_attn_decode_beam', 'cross_attn_decode_group',
-          'dtw_cost')),
-        ('ladder', [('30 s, temperature=(0.0, 0.4, 0.8), best_of=5',
-                     audio[125 * SR:155 * SR])],
-         dict(language='en', temperature=ladder, best_of=5),
-         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
-          'cross_attn_decode_group', 'dtw_cost')),
-    ]
     counts = {}
-    for path, requests, options, needed in paths:
-        _build.reset_launch_counts()
-        for label, clip in requests:
-            duration = clip.shape[-1] / SR
-            phases.clear()
-            rungs.clear()
-            steps[0] = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            result = model.transcribe(clip, verbose=None, **options)
-            srt = result.to_srt_vtt(word_level=True)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_words = check_result(result, srt, duration)
-            check_rungs(path, rungs, result, ladder)
-            split = ', '.join(f'{k} {v:.3f} s' for k, v in phases.items())
-            log(f'[{path}] request {label}: wall {wall:.3f} s '
-                f'({wall / duration:.4f} s per audio second), language '
-                f'{result.language}, {len(result.segments)} segments, {n_words} '
-                f'words, srt {len(srt)} bytes; {len(rungs)} decode calls '
-                f'{sorted(set(rungs), key=str)}, {steps[0]} decoder steps '
-                f'({phases["decode"] / (steps[0] + len(rungs)) * 1e3:.2f} ms per '
-                f'step or prefill); {split}, other '
-                f'{wall - sum(phases.values()):.3f} s')
-        path_counts = _build.launch_counts()
-        log(f'[{path}] kernel launches on this path: {path_counts}')
-        for name in needed:
-            if path_counts.get(name, 0) <= 0:
-                raise AssertionError(f'kernel {name} was not launched on the '
-                                     f'{path} path')
-        for name, n in path_counts.items():
-            counts[name] = counts.get(name, 0) + n
+    try:
+        for path, requests, options, needed in paths:
+            _build.reset_launch_counts()
+            for label, clip, *request_options in requests:
+                opts = request_options[0] if request_options else options
+                duration = clip.shape[-1] / SR
+                phases.clear()
+                rungs.clear()
+                steps[0] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = model.transcribe(clip, verbose=None, **opts)
+                srt = result.to_srt_vtt(word_level=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n_words = check_result(result, srt, duration)
+                check_rungs(opts, rungs, result, ladder)
+                split = ', '.join(f'{k} {v:.3f} s' for k, v in phases.items())
+                log(f'[{path}] request {label}: wall {wall:.3f} s '
+                    f'({wall / duration:.4f} s per audio second), language '
+                    f'{result.language}, {len(result.segments)} segments, {n_words} '
+                    f'words, srt {len(srt)} bytes; {len(rungs)} decode calls '
+                    f'{sorted(set(rungs), key=str)}, {steps[0]} decoder steps '
+                    f'({phases["decode"] / (steps[0] + len(rungs)) * 1e3:.2f} ms per '
+                    f'step or prefill); {split}, other '
+                    f'{wall - sum(phases.values()):.3f} s')
+            path_counts = _build.launch_counts()
+            log(f'[{path}] kernel launches on this path: {path_counts}')
+            for name in needed:
+                if path_counts.get(name, 0) <= 0:
+                    raise AssertionError(f'kernel {name} was not launched on the '
+                                         f'{path} path')
+            for name, n in path_counts.items():
+                counts[name] = counts.get(name, 0) + n
+    finally:
+        decoding.decoder_step, driver.add_word_timestamps = step_fn, word_fn
     return counts
 
 
-def check_rungs(path: str, rungs: list, result, ladder: tuple) -> None:
-    """The decode calls each request made: greedy and beam decode each
-    window once at temperature 0; the ladder, with random weights whose
-    avg_logprob is far below -1, runs every rung of every window in order,
-    best_of only above 0, and the segments keep the last rung."""
-    if path == 'ladder':
+def check_rungs(options: dict, rungs: list, result, ladder: tuple) -> None:
+    """The decode calls each request made: a request at temperature 0
+    decodes each window once, with its beam size; the ladder, with random
+    weights whose avg_logprob is far below -1, runs every rung of every
+    window in order, best_of only above 0, and the segments keep the last
+    rung."""
+    if options['temperature'] == ladder:
         want = [(t, 5 if t > 0 else None, None) for t in ladder]
         if not rungs or rungs != want * (len(rungs) // len(want)):
             raise AssertionError(f'ladder rungs {rungs}, expected repeats of {want}')
@@ -500,9 +703,10 @@ def check_rungs(path: str, rungs: list, result, ladder: tuple) -> None:
         if temps != {ladder[-1]}:
             raise AssertionError(f'segment temperatures {temps} != {{{ladder[-1]}}}')
     else:
-        beam = 5 if path == 'beam' else None
+        beam = options.get('beam_size')
         if set(rungs) != {(0, None, beam)}:
-            raise AssertionError(f'{path} decode calls {set(rungs)}')
+            raise AssertionError(f'decode calls {set(rungs)}, expected '
+                                 f'{{(0, None, {beam})}}')
 
 
 if __name__ == '__main__':

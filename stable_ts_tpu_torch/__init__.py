@@ -6,16 +6,16 @@ under the timestamp grammar -> cross-attention DTW word timing -> SRT) runs
 in PyTorch on one NVIDIA Hopper GPU, with hand-written CUDA kernels where
 the JAX package runs Pallas kernels on the TPU (flash attention, self- and
 cross-attention decode with their beam and window-group entries, the
-greedy logit epilogue, the DTW cost). The framework-free host code
-(results, regrouping, silence suppression, text output, the tokenizer) is
-shared with ``stable_ts_tpu``, which this package imports without
-importing jax.
+greedy logit epilogue, the DTW cost, the int8 weight-only matmul of
+``dq`` models, the streamed vocab projection). The framework-free host
+code (audio loading, results, regrouping, silence suppression, text
+output, the tokenizer) is the port's own copy of ``stable_ts_tpu``'s: this
+package imports nothing of ``stable_ts_tpu`` and nothing of jax.
 """
-from stable_ts_tpu._version import __version__
-from stable_ts_tpu.result import WhisperResult, Segment, WordTiming
-from stable_ts_tpu.text_output import (result_to_srt_vtt, result_to_ass,
-                                       result_to_tsv, result_to_txt,
-                                       save_as_json, load_result)
+from ._version import __version__
+from .result import WhisperResult, Segment, WordTiming
+from .text_output import (result_to_srt_vtt, result_to_ass, result_to_tsv,
+                          result_to_txt, save_as_json, load_result)
 
 _LAZY = {
     'WhisperTorch': 'stable_ts_tpu_torch.loaders',

@@ -62,6 +62,10 @@ _SIGNATURES = {
                        _I, _I, _P],
     # x, cost, B, N, M, stream
     'dtw_cost': [_P, _P, _I, _I, _I, _P],
+    # x, q, scale, out, x dtype, M, N, K, stream
+    'woq_matmul': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, emb, out, dtype, M, d, V, stream
+    'vocab_proj': [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {
@@ -178,8 +182,9 @@ def stream_ptr(tensor) -> int:
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
-# dtype codes shared with csrc/common.cuh
-DTYPE_F32, DTYPE_BF16, DTYPE_I8 = 0, 1, 2
+# dtype codes shared with csrc/common.cuh (DTYPE_I4: int8 bytes that each
+# pack two int4 values, which no torch dtype names)
+DTYPE_F32, DTYPE_BF16, DTYPE_I8, DTYPE_I4 = 0, 1, 2, 3
 
 
 def dtype_code(dtype) -> int:

@@ -6,10 +6,27 @@
 #include <math.h>
 #include <stdint.h>
 
-// dtype codes: keep in step with _build.py (DTYPE_F32, DTYPE_BF16, DTYPE_I8)
-enum DTypeCode { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
+// dtype codes: keep in step with _build.py (DTYPE_F32, DTYPE_BF16, DTYPE_I8,
+// DTYPE_I4)
+enum DTypeCode { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I4 = 3 };
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Two int4 values in one byte (the port's packed int4 layout): dim 2i in the
+// low nibble, dim 2i + 1 in the high nibble, each sign-extended on load.
+struct Int4x2 {
+  int8_t raw;
+};
+
+// Logical values per storage element of T: 2 for packed int4, else 1.
+template <typename T> struct Pack { static constexpr int V = 1; };
+template <> struct Pack<Int4x2> { static constexpr int V = 2; };
+
+// p advanced by ``values`` logical values (a multiple of Pack<T>::V).
+template <typename T>
+__device__ __forceinline__ const T* at(const T* p, long long values) {
+  return p + values / Pack<T>::V;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -26,28 +43,41 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Elements of T in one 16-byte vector.
-template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
+// Logical values of T in BYTES bytes.
+template <typename T, int BYTES> struct VecB {
+  static constexpr int N = BYTES / static_cast<int>(sizeof(T)) * Pack<T>::V;
+};
+template <typename T> struct Vec16 { static constexpr int N = VecB<T, 16>::N; };
 
-// One 16-byte load at p (16-byte aligned), widened to Vec16<T>::N floats.
-template <typename T>
-__device__ __forceinline__ void load16(const T* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
+template <int BYTES> struct RawVec;
+template <> struct RawVec<16> { using type = uint4; };
+template <> struct RawVec<8> { using type = uint2; };
+template <> struct RawVec<4> { using type = unsigned; };
+
+// One BYTES-byte load at p (BYTES-aligned), widened to VecB<T, BYTES>::N
+// floats in logical order.
+template <int BYTES, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  using Raw = typename RawVec<BYTES>::type;
+  const Raw raw = *reinterpret_cast<const Raw*>(p);
+  if constexpr (Pack<T>::V == 2) {
+    // little-endian: nibble n of 32-bit word i is logical value 8 i + n;
+    // shift it to the top, then an arithmetic shift sign-extends it
+    const unsigned* w = reinterpret_cast<const unsigned*>(&raw);
 #pragma unroll
-  for (int i = 0; i < Vec16<T>::N; ++i) out[i] = to_float(e[i]);
+    for (int i = 0; i < BYTES / 4; ++i)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        out[8 * i + n] = static_cast<float>(static_cast<int>(w[i] << (28 - 4 * n)) >> 28);
+  } else {
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VecB<T, BYTES>::N; ++i) out[i] = to_float(e[i]);
+  }
 }
 
-// Elements of T in one 8-byte vector, and one 8-byte load (8-byte aligned).
-template <typename T> struct Vec8 { static constexpr int N = 8 / sizeof(T); };
-
 template <typename T>
-__device__ __forceinline__ void load8(const T* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < Vec8<T>::N; ++i) out[i] = to_float(e[i]);
-}
+__device__ __forceinline__ void load16(const T* p, float* out) { load_vec<16>(p, out); }
 
 // Let a kernel take ``bytes`` of dynamic shared memory: a block whose static
 // plus dynamic shared memory passes 48 KB needs this opt-in.

@@ -10,7 +10,9 @@
 //     keys j < s of the precomputed cross-attention K/V;
 //   - ops/cross_attn.py:_kernel, the q_per_kv = g > 1 branch: g query rows
 //     (the beams or best_of candidates of one window) share their window's
-//     cross K/V.
+//     cross K/V;
+//   - ops/cross_attn.py:_kernel, the bits = 4 branch (:60-75), for g = 1 and
+//     g > 1: the cross K/V as packed int4 (dtype code DT_I4, type Int4x2).
 //
 // What bounds it on the card: bytes. A decode step reads each cache row
 // once and does 2 multiply-adds per byte (2 g with g query rows per row),
@@ -41,6 +43,16 @@
 // The cross entries round the query and the weights to bf16 before the two
 // products, as the TPU kernel does for its MXU (cross_attn.py:107,118-120,
 // 129); the self entries keep them in f32, as the XLA cache path does.
+//
+// Packed int4 (the cross entries only). The TPU packs dim r and r + d/2 in
+// one byte (split halves, to spare a sublane shuffle); in this row-major
+// (.., S, d) layout that would give each head the low or high nibbles of
+// d_head bytes, so a block would read twice the bytes it uses. The port
+// packs adjacent dims instead (2i low nibble, 2i + 1 high), so head h's
+// slice of a row is d_head / 2 contiguous bytes and the stream is half of
+// int8's. Offsets inside a row count logical values (``at``); the batch and
+// row strides count bytes. The values, their scales and the bf16 rounding
+// points are the TPU kernel's.
 #include "common.cuh"
 
 namespace {
@@ -83,12 +95,12 @@ decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
   float lmax = -INFINITY;
   for (int j = tid; j < n_keys; j += DEC_THREADS) {
     const long long r = src(j);
-    const T* row = k + r * kv_bs + j * kv_rs + h * DH;
+    const T* row = at(k + r * kv_bs + j * kv_rs, h * DH);
     float acc = 0.f;
 #pragma unroll
     for (int c = 0; c < CPR; ++c) {
       float kv[VN];
-      load16(row + c * VN, kv);
+      load16(at(row, c * VN), kv);
 #pragma unroll
       for (int e = 0; e < VN; ++e) acc = fmaf(qs[c * VN + e], kv[e], acc);
     }
@@ -115,7 +127,7 @@ decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
   for (int e = 0; e < VN; ++e) acc[e] = 0.f;
   for (int j = group; j < n_keys; j += GROUPS) {
     float vv[VN];
-    load16(v + src(j) * kv_bs + j * kv_rs + h * DH + chunk * VN, vv);
+    load16(at(v + src(j) * kv_bs + j * kv_rs, h * DH + chunk * VN), vv);
     const float w = p[j];
 #pragma unroll
     for (int e = 0; e < VN; ++e) acc[e] = fmaf(w, vv[e], acc[e]);
@@ -137,9 +149,15 @@ cross_group_kernel(const float* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ vs, float* __restrict__ out,
                    int n_head, int n_keys, long long kv_bs, long long kv_rs,
                    long long sc_bs, int g) {
-  constexpr int VN = Vec16<T>::N;        // K stage: 16-byte chunks
+  // K stage: 16-byte chunks (8-byte for int4, so a chunk holds 16 values
+  // as int8's does and the GMAX sums beside it stay in registers)
+  constexpr int KB = 16 / Pack<T>::V;
+  constexpr int VN = VecB<T, KB>::N;
   constexpr int CPR = DH / VN;
-  constexpr int V8 = Vec8<T>::N;         // V stage: 8-byte chunks
+  // V stage: 8-byte chunks (4-byte for int4), at most 8 values each, so the
+  // GMAX x 8 accumulators stay in registers
+  constexpr int VB = 8 / Pack<T>::V;
+  constexpr int V8 = VecB<T, VB>::N;
   constexpr int CPR8 = DH / V8;
   constexpr int GROUPS = DEC_THREADS / CPR8;
   static_assert(DH % VN == 0 && DH % V8 == 0, "d_head must fill whole chunks");
@@ -153,8 +171,8 @@ cross_group_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const int q0 = b * g + blockIdx.z * GMAX;          // first query row
   const int ng = min(GMAX, g - blockIdx.z * GMAX);   // query rows here
   const int d = n_head * DH;
-  const T* kb = k + b * kv_bs + h * DH;
-  const T* vb = v + b * kv_bs + h * DH;
+  const T* kb = at(k + b * kv_bs, h * DH);
+  const T* vb = at(v + b * kv_bs, h * DH);
   const float* ksb = ks ? ks + b * sc_bs : nullptr;
   const float* vsb = vs ? vs + b * sc_bs : nullptr;
 
@@ -175,7 +193,7 @@ cross_group_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 1
     for (int c = 0; c < CPR; ++c) {
       float kv[VN];
-      load16(row + c * VN, kv);
+      load_vec<KB>(at(row, c * VN), kv);
 #pragma unroll
       for (int gi = 0; gi < GMAX; ++gi) {
         if (gi < ng) {
@@ -228,7 +246,7 @@ cross_group_kernel(const float* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < V8; ++e) acc[gi][e] = 0.f;
   for (int j = group; j < n_keys; j += GROUPS) {
     float vv[V8];
-    load8(vb + j * kv_rs + chunk * V8, vv);
+    load_vec<VB>(at(vb + j * kv_rs, chunk * V8), vv);
 #pragma unroll
     for (int gi = 0; gi < GMAX; ++gi) {
       if (gi < ng) {
@@ -322,6 +340,11 @@ int launch_entry(const DecodeArgs& a) {
 template <Entry E>
 int dispatch(int dtype, const DecodeArgs& a) {
   switch (dtype) {
+    case DT_I4:  // packed int4: the cross entries only
+      if constexpr (E == Entry::kCross || E == Entry::kGroup)
+        return launch_entry<E, Int4x2>(a);
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
     case DT_I8: return launch_entry<E, int8_t>(a);
     case DT_BF16: return launch_entry<E, __nv_bfloat16>(a);
     case DT_F32: return launch_entry<E, float>(a);
@@ -331,8 +354,10 @@ int dispatch(int dtype, const DecodeArgs& a) {
 
 }  // namespace
 
-// Strides are in elements: row (b, j) of head h starts at
-// k + b * kv_bs + j * kv_rs + h * d_head; its scale at ks[b * sc_bs + j].
+// Strides are in storage elements (bytes for int8 and packed int4): row
+// (b, j) of head h starts h * d_head values after k + b * kv_bs + j * kv_rs;
+// its scale is ks[b * sc_bs + j]. dtype DT_I4 (packed int4) is taken by the
+// two cross entries only.
 // ks / vs may be null (a float cache: scale 1). q and out are contiguous
 // (rows, n_head * d_head) f32.
 extern "C" int self_attn_decode(const void* q, const void* k, const void* v,

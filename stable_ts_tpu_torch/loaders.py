@@ -6,7 +6,9 @@ A model lives on one explicit device. Asking for ``cuda`` on a machine
 without a GPU raises; nothing moves to the CPU behind the caller's back.
 Checkpoint loading waits for weights in the repository (ROADMAP.md);
 :func:`load_test_model` and :func:`from_jax` build models from a seed or
-from a JAX model's weights.
+from a JAX model's weights. ``dq=True`` quantizes the q/k/v/out/fc1/fc2
+linears to int8 weights with per-output-channel scales on the model's
+device (stable_ts_tpu/loaders.py:41-47).
 """
 from typing import Optional, Sequence, Tuple
 
@@ -18,21 +20,28 @@ from .models.whisper.decoding import (DecodingOptions, decode as _decode,
 from .models.whisper.dims import ModelDimensions, tiny_test_dims
 from .models.whisper.model import (Whisper, encoder_apply, init_params,
                                    resolve_device)
+from .models.whisper.quantization import is_quantized, quantize_params
 from .models.whisper.tokenizer import (WhisperTokenizer, get_tokenizer,
                                        synthetic_byte_ranks)
 
 
 class WhisperTorch:
     """A Whisper model on one device: the weights (``params``, a
-    :class:`~.models.whisper.model.Whisper` module) plus the task methods."""
+    :class:`~.models.whisper.model.Whisper` module) plus the task methods.
+    ``dq=True`` swaps the linears of ``params`` for int8 weight-only ones,
+    in place, after moving them to the device."""
 
     def __init__(self, dims: ModelDimensions, params: Whisper, *, device,
                  name: str = 'custom', vocab_path: Optional[str] = None,
                  ranks: Optional[dict] = None,
-                 alignment_heads: Optional[Sequence[Tuple[int, int]]] = None):
+                 alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
+                 dq: bool = False):
         self.device = resolve_device(device)
         self.dims = dims
         self.params = params.to(self.device).requires_grad_(False).eval()
+        if dq:
+            quantize_params(self.params)
+        self.quantized = is_quantized(self.params)
         self.name = name
         self.alignment_heads = alignment_heads
         self._vocab_path = vocab_path
@@ -122,7 +131,8 @@ class WhisperTorch:
 
 def load_test_model(seed: int = 0, device='cpu', **kwargs) -> WhisperTorch:
     """A miniature random-weight model (tiny_test_dims, drawn from a torch
-    Generator) wired to the synthetic byte tokenizer."""
+    Generator) wired to the synthetic byte tokenizer; ``kwargs`` go to
+    :class:`WhisperTorch` (``dq=True``, ``alignment_heads``)."""
     dims = tiny_test_dims()
     device = resolve_device(device)
     return WhisperTorch(dims, init_params(dims, seed=seed, device=device),
@@ -133,11 +143,9 @@ def load_test_model(seed: int = 0, device='cpu', **kwargs) -> WhisperTorch:
 def from_jax(model_tpu, device='cpu') -> WhisperTorch:
     """The port's model with the weights, dims, tokenizer source and
     alignment heads of a ``stable_ts_tpu`` WhisperTPU (its parameters are
-    downloaded to numpy). Quantized (dq) models are not ported yet."""
+    downloaded to numpy). A ``dq`` model's int8 weights and scales carry
+    over exactly."""
     from .models.whisper.convert import from_jax_params
-    if getattr(model_tpu, 'quantized', False):
-        raise NotImplementedError('int8 weight-only (dq) models are still to '
-                                  'be ported (ROADMAP.md)')
     dims = ModelDimensions(**vars(model_tpu.dims))
     device = resolve_device(device)
     return WhisperTorch(

@@ -5,17 +5,32 @@ stable_ts_tpu keeps (model.py:83-125, 386-395, 938-988):
   torch's (d_out, d_in);
 - conv weights as (width, in, out) (HIO): transposed to (out, in, width);
 - every per-layer leaf stacked along a leading (L, ...) axis: split here
-  into one module per block.
+  into one module per block;
+- a ``dq`` model's linear weights as ``QuantizedArray`` leaves
+  (quantization.py:33-74): ``q`` (L, in, out) int8 and ``scale``
+  (L, 1, out) f32, mapped exactly to the port's
+  :class:`~.quantization.QuantizedLinear` ``weight`` (out, in) and
+  ``scale`` (out,).
 """
 import numpy as np
 import torch
 
 from .dims import ModelDimensions
 from .model import Whisper
+from .quantization import quantize_params
+
+
+def _is_quantized(leaf) -> bool:
+    return hasattr(leaf, 'q') and hasattr(leaf, 'scale')
 
 
 def _linear_tree(prefix: str, tree: dict, layer: int, out: dict) -> None:
-    out[f'{prefix}.weight'] = np.asarray(tree['w'])[layer].T
+    w = tree['w']
+    if _is_quantized(w):
+        out[f'{prefix}.weight'] = np.asarray(w.q)[layer].T
+        out[f'{prefix}.scale'] = np.asarray(w.scale)[layer, 0]
+    else:
+        out[f'{prefix}.weight'] = np.asarray(w)[layer].T
     if 'b' in tree:
         out[f'{prefix}.bias'] = np.asarray(tree['b'])[layer]
 
@@ -60,18 +75,24 @@ def from_jax_params(params: dict, dims: ModelDimensions,
                     device='cpu') -> Whisper:
     """The port's model holding the same weights as a JAX pytree whose
     leaves are numpy arrays (or anything ``np.asarray`` takes), in the
-    pytree's float dtype (f32 or bf16)."""
+    pytree's float dtype (f32 or bf16). A pytree with quantized linears
+    gives a model with :class:`~.quantization.QuantizedLinear` holding the
+    same int8 values and scales."""
     state = jax_state_dict(params, dims)
     dtype = (torch.bfloat16 if state['decoder.token_emb'].dtype.name == 'bfloat16'
              else torch.float32)
     model = Whisper(dims, device='meta', dtype=dtype).to_empty(device=device)
-    names = dict(model.named_parameters())
+    if any(name.endswith('.scale') for name in state):
+        quantize_params(model, empty=True)
+    names = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     if set(names) != set(state):
         raise ValueError(f'parameter mismatch: missing '
                          f'{sorted(set(names) - set(state))}, unexpected '
                          f'{sorted(set(state) - set(names))}')
     for name, p in names.items():
-        arr = np.array(state[name], dtype=np.float32)  # a writable copy
+        # a writable copy: int8 values exactly, floats through f32
+        arr = np.array(state[name], dtype=np.int8 if p.dtype == torch.int8
+                       else np.float32)
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f'{name}: shape {arr.shape} != {tuple(p.shape)}')
         p.copy_(torch.from_numpy(arr))

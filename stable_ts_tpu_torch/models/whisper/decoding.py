@@ -61,7 +61,8 @@ class DecodingOptions:
     without_timestamps: bool = False
     max_initial_timestamp: Optional[float] = 1.0
     kv_quant: Optional[Union[bool, int]] = None  # cross K/V: None = int8 when
-    # n_audio_state >= 1024 else float; True/8 = int8; False = float
+    # n_audio_state >= 1024 else float; True/8 = int8; 4 = packed int4;
+    # False = float
 
 
 @dataclass
@@ -176,13 +177,6 @@ class LogitFilter:
         max_text = torch.where(is_text, logprobs, neg).amax(dim=-1)
         force_ts = ts_logprob > max_text
         return torch.where(force_ts[:, None] & is_text, neg, logits)
-
-
-def _check_supported(options: DecodingOptions) -> None:
-    if options.kv_quant not in (None, False, True, 8):
-        raise NotImplementedError(
-            f'kv_quant={options.kv_quant!r}: only float or int8 cross K/V is '
-            'ported; packed int4 is still to be ported (ROADMAP.md)')
 
 
 def audio_features(model, dims, mel_or_features: torch.Tensor) -> torch.Tensor:
@@ -453,7 +447,6 @@ def decode(model, dims, tokenizer, mel_or_features: torch.Tensor,
     timestamp tokens to suppress (the silence-mask rule). ``generator``
     draws the samples at temperature > 0; None means a fresh generator on
     the model's device seeded with 0."""
-    _check_supported(options)
     xa = audio_features(model, dims, mel_or_features)
     device = xa.device
     batch = xa.shape[0]
@@ -506,7 +499,7 @@ def decode(model, dims, tokenizer, mel_or_features: torch.Tensor,
     xa_rows = xa.repeat_interleave(n_group, dim=0) if n_group > 1 else xa
     prefill_logits, cache = decoder_prefill(dec, tokens0, xa_rows, cache_len)
     kv_quant = (dims.n_audio_state >= 1024 if options.kv_quant is None
-                else bool(options.kv_quant))
+                else options.kv_quant)
     step = partial(decoder_step, dec, cross_kv=precompute_cross_kv_t(
         dec, xa, quantize=kv_quant), cache=cache, fused_qkv=fuse_self_qkv(dec),
         q_per_kv=n_group)

@@ -15,7 +15,15 @@ their JAX counterparts so a reader finds each one's twin:
   serves best_of groups and beams (``q_per_kv``, ``anc``) and can return
   the hidden state for the logit epilogue (``ops/logit_epilogue.py``);
 - :func:`precompute_cross_kv_t`: per-layer cross-attention K/V once per
-  window, in the row-major layout the cross kernel reads.
+  window, in the row-major layout the cross kernel reads (float, int8 or
+  packed int4);
+- :meth:`TextDecoder.vocab_logits`: the tied-embedding logits, through the
+  vocab-projection kernel (``ops/vocab_proj.py``) at decode-step shapes.
+
+A ``dq`` model's q/k/v/out/fc1/fc2 linears are
+:class:`~.quantization.QuantizedLinear` modules (int8 weights through the
+weight-only kernel, ``ops/woq_matmul.py``); every apply below calls them as
+modules, so the float and the quantized model share one code path.
 
 Numerics follow the JAX package: layer norm in f32 with eps 1e-5, exact-erf
 GELU, f32 accumulation, attention scores and logits in f32, and int8
@@ -23,6 +31,7 @@ quantization with half-to-even rounding. Linear weights are stored in
 torch's (out, in) layout; :mod:`.convert` transposes the JAX (in, out) ones.
 """
 import math
+from functools import partial
 from typing import List, Optional
 
 import numpy as np
@@ -30,10 +39,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.cross_attn import cross_attn_decode
+from ...ops.cross_attn import cross_attn_decode, pack_int4
 from ...ops.flash_attn import flash_attention
 from ...ops.self_attn import self_attn_decode
+from ...ops.vocab_proj import MAX_ROWS, MIN_VOCAB, vocab_proj
 from .dims import ModelDimensions
+from .quantization import QuantizedLinear
 
 
 # -- primitives ----------------------------------------------------------------------------
@@ -154,10 +165,17 @@ class TextDecoder(nn.Module):
         self._emb_f32 = None  # (token_emb version, f32 copy)
 
     def vocab_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied-embedding projection x @ token_emb^T with f32 logits. A bf16
-        model multiplies by an exact f32 copy of the embedding (made once per
-        weight version), which equals bf16 products summed in f32 — what the
-        JAX package's ``preferred_element_type=float32`` computes."""
+        """Tied-embedding projection x @ token_emb^T with f32 logits. A
+        decode step's 2-D x of at most 256 rows against a vocabulary of at
+        least 2048 goes to the vocab-projection kernel (its twin on the
+        CPU), the shapes the JAX package sends its kernel (model.py:150).
+        Other shapes (prefill, the teacher-forced pass) multiply by an exact
+        f32 copy of a bf16 embedding (made once per weight version), which
+        equals bf16 products summed in f32 — what the JAX package's
+        ``preferred_element_type=float32`` computes."""
+        if (x.dim() == 2 and x.shape[0] <= MAX_ROWS
+                and self.token_emb.shape[0] >= MIN_VOCAB):
+            return vocab_proj(x, self.token_emb)
         w = self.token_emb
         if w.dtype != torch.float32:
             version = w._version
@@ -247,13 +265,20 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
     return logits, (torch.stack(qks) if capture_qk else None)
 
 
-def quantize_rows(t: torch.Tensor):
-    """Per-row symmetric int8 over the last axis: (..., d) -> int8 (..., d)
-    and f32 scales (...,). Half-to-even rounding, as jnp.round."""
+def quantize_rows(t: torch.Tensor, bits: int = 8):
+    """Per-row symmetric int``bits`` over the last axis: (..., d) -> int8
+    values (..., d) and f32 scales (...,). Half-to-even rounding, as
+    jnp.round. The scale is amax times the f32 reciprocal of the grid's
+    top, not amax divided by it: the JAX functions that quantize cache rows
+    are compiled, and XLA folds the division by the constant into that
+    multiply, so the two packages round the same values to the same
+    codes."""
+    qmax = float(2 ** (bits - 1) - 1)
     t32 = t.float()
     amax = t32.abs().amax(dim=-1, keepdim=True)
-    sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.clamp(torch.round(t32 / sc), -127, 127).to(torch.int8)
+    sc = torch.where(amax > 0, amax * torch.tensor(1.0 / qmax, dtype=torch.float32),
+                     torch.ones_like(amax))
+    q = torch.clamp(torch.round(t32 / sc), -qmax, qmax).to(torch.int8)
     return q, sc[..., 0]
 
 
@@ -296,37 +321,55 @@ def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,
 
 
 def fuse_self_qkv(decoder: TextDecoder):
-    """Per-layer (w (3d, d), b (3d,)) of the self-attention q/k/v
-    projections concatenated (model.py:459): one product per layer per
-    token instead of three. k has no bias; its slot is zeros."""
+    """Per layer, one projection of the self-attention q/k/v weights
+    concatenated (model.py:459-484): one product per layer per token
+    instead of three. k has no bias; its slot is zeros. A quantized layer
+    concatenates the int8 weights and their per-output scales, which is
+    exact. Each entry is a callable x -> (..., 3d)."""
     fused = []
     for blk in decoder.blocks:
         a = blk.attn
-        w = torch.cat([a.q.weight, a.k.weight, a.v.weight], dim=0)
         bias = torch.cat([a.q.bias, torch.zeros_like(a.q.bias), a.v.bias])
-        fused.append((w, bias))
+        if isinstance(a.q, QuantizedLinear):
+            fused.append(QuantizedLinear(
+                torch.cat([a.q.weight, a.k.weight, a.v.weight], dim=0),
+                torch.cat([a.q.scale, a.k.scale, a.v.scale]), bias))
+        else:
+            w = torch.cat([a.q.weight, a.k.weight, a.v.weight], dim=0)
+            fused.append(partial(F.linear, weight=w, bias=bias))
     return fused
 
 
 def precompute_cross_kv_t(decoder: TextDecoder, xa: torch.Tensor,
-                          quantize: bool = False):
+                          quantize=False):
     """Cross-attention K/V of every layer, once per window, in the layout
-    the cross kernel reads (model.py:487-547, re-laid out row-major):
-    {'kv': (L, B, 2, S, d) int8 or xa's dtype, 'sc': (L, B, 2, S) f32
-    per-position scales (ones when float), 's': S}."""
+    the cross kernel reads (model.py:487-547, re-laid out row-major).
+
+    ``quantize``: False keeps xa's dtype; True or 8 stores int8 with
+    per-position scales (amax / 127 over d); 4 stores the int4 grid
+    ([-7, 7], amax / 7) packed two dims per byte (:func:`pack_int4`); any
+    other width in 2..8 stores its grid unpacked, as the JAX package does.
+    Returns {'kv': (L, B, 2, S, d) (or (L, B, 2, S, d / 2) bytes for int4),
+    'sc': (L, B, 2, S) f32 per-position scales (ones when float), 's': S,
+    'bits': the stored width (0 = float)}."""
     b, s, d = xa.shape
     n_layers = len(decoder.blocks)
-    dtype = torch.int8 if quantize else xa.dtype
-    kv = torch.empty((n_layers, b, 2, s, d), dtype=dtype, device=xa.device)
+    bits = 0 if not quantize else (8 if quantize is True else int(quantize))
+    if bits and not 2 <= bits <= 8:
+        raise ValueError(f'cross K/V quantization takes 2 to 8 bits, got {bits}')
+    width = d // 2 if bits == 4 else d
+    dtype = torch.int8 if bits else xa.dtype
+    kv = torch.empty((n_layers, b, 2, s, width), dtype=dtype, device=xa.device)
     sc = torch.ones((n_layers, b, 2, s), dtype=torch.float32, device=xa.device)
     for layer, blk in enumerate(decoder.blocks):
         ca = blk.cross_attn
         for slot, t in enumerate((ca.k(xa), ca.v(xa))):
-            if quantize:
-                kv[layer, :, slot], sc[layer, :, slot] = quantize_rows(t)
+            if bits:
+                q, sc[layer, :, slot] = quantize_rows(t, bits)
+                kv[layer, :, slot] = pack_int4(q) if bits == 4 else q
             else:
                 kv[layer, :, slot] = t
-    return {'kv': kv, 'sc': sc, 's': s}
+    return {'kv': kv, 'sc': sc, 's': s, 'bits': bits}
 
 
 def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
@@ -350,9 +393,9 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
     d = decoder.token_emb.shape[1]
     q_scale = (d // n_head) ** -0.5
     x = _embed(decoder, tokens, offset=pos)
+    cross_bits = 4 if cross_kv['bits'] == 4 else 8
     for layer, blk in enumerate(decoder.blocks):
-        w, bias = fused_qkv[layer]
-        qkv = F.linear(blk.attn_ln(x), w, bias)
+        qkv = fused_qkv[layer](blk.attn_ln(x))
         q_proj, new_k, new_v = qkv[:, 0].split(d, dim=-1)
         for name, t in (('k', new_k), ('v', new_v)):
             qt, sc = quantize_rows(t)
@@ -366,7 +409,8 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
         ca = blk.cross_attn
         q = ca.q(blk.cross_attn_ln(x))[:, 0].float() * q_scale
         ctx = cross_attn_decode(q, cross_kv['kv'], cross_kv['sc'], layer,
-                                cross_kv['s'], n_head, q_per_kv=q_per_kv)
+                                cross_kv['s'], n_head, q_per_kv=q_per_kv,
+                                bits=cross_bits)
         x = x + ca.out(ctx[:, None].to(x.dtype))
         x = x + blk.mlp(blk.mlp_ln(x))
     x = decoder.ln(x)[:, 0]

@@ -22,8 +22,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from stable_ts_tpu.constants import N_SAMPLES_PER_TOKEN, TOKENS_PER_SECOND
-
+from ...constants import N_SAMPLES_PER_TOKEN, TOKENS_PER_SECOND
 from ...ops.dtw import dtw_cost, dtw_jumps
 from ...ops.median import median_filter
 from .model import decoder_apply, encoder_apply

@@ -13,7 +13,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from stable_ts_tpu.constants import HOP_LENGTH, N_FFT, SAMPLE_RATE
+from ..constants import HOP_LENGTH, N_FFT, SAMPLE_RATE
 
 
 def _hz_to_mel_slaney(freq):

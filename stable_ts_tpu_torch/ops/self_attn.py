@@ -85,12 +85,13 @@ def self_attn_decode(q, k, v, k_scale, v_scale, pos: int, n_head: int,
 
 
 def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
-                 anc=None):
+                 anc=None, packed=False):
     """Launch one of decode_attn.cu's entries. k/v: (B, S, d) views whose
-    rows are contiguous (batch and row strides are passed through);
-    scales: (B, S) views with unit stride along S, or None. The group entry
-    takes B * g query rows; the beam entry takes ``anc`` (B, >= n_keys)
-    int32 with unit stride along keys."""
+    rows are contiguous (batch and row strides are passed through), or with
+    ``packed`` (the cross entries only) (B, S, d / 2) int8 bytes of packed
+    int4, counted as ``<entry>_int4``; scales: (B, S) views with unit stride
+    along S, or None. The group entry takes B * g query rows; the beam
+    entry takes ``anc`` (B, >= n_keys) int32 with unit stride along keys."""
     rows, d = q.shape
     dh = d // n_head
     group = entry == 'cross_attn_decode_group'
@@ -102,7 +103,9 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
     if k.dtype != v.dtype or k.stride() != v.stride() or k.shape != v.shape:
         raise ValueError('decode kernel: k and v must share dtype and layout')
     b = k.shape[0]
-    if (rows != (b * g if group else b) or k.shape[2] != d
+    if packed and (k.dtype != torch.int8 or anc is not None):
+        raise ValueError(f'{entry}: packed int4 is int8 bytes, cross entries only')
+    if (rows != (b * g if group else b) or k.shape[2] * (2 if packed else 1) != d
             or not 1 <= n_keys <= k.shape[1]):
         raise ValueError(f'decode kernel: cache {tuple(k.shape)} for query '
                          f'{tuple(q.shape)}, {n_keys} keys, g={g}')
@@ -140,7 +143,8 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
-        out.data_ptr(), _build.dtype_code(k.dtype), b, n_head, dh, n_keys,
-        k.stride(0), k.stride(1), sc_bs, *extra, _build.stream_ptr(q)), entry)
-    _build.launches[entry] += 1
+        out.data_ptr(), _build.DTYPE_I4 if packed else _build.dtype_code(k.dtype),
+        b, n_head, dh, n_keys, k.stride(0), k.stride(1), sc_bs, *extra,
+        _build.stream_ptr(q)), entry)
+    _build.launches[entry + ('_int4' if packed else '')] += 1
     return out

@@ -13,17 +13,15 @@ from typing import Callable, List, Optional, Union
 
 import numpy as np
 
-from stable_ts_tpu.audio.loader import AudioLoader
-from stable_ts_tpu.constants import (N_FRAMES, N_SAMPLES, N_SAMPLES_PER_TOKEN,
-                                     SAMPLE_RATE)
-from stable_ts_tpu.defaults import (get_append_punctuations, get_min_word_dur,
-                                    get_prepend_punctuations)
-from stable_ts_tpu.result import Segment, WhisperResult
-from stable_ts_tpu.stabilization import NonSpeechPredictor
-from stable_ts_tpu.utils import (decode_acceptable, format_timestamp,
-                                 keep_segment_instant_rule, make_progress_bar,
-                                 progress_update, safe_print, timestamp_spans)
-
+from .audio.loader import AudioLoader
+from .constants import N_FRAMES, N_SAMPLES, N_SAMPLES_PER_TOKEN, SAMPLE_RATE
+from .defaults import (get_append_punctuations, get_min_word_dur,
+                       get_prepend_punctuations)
+from .result import Segment, WhisperResult
+from .stabilization import NonSpeechPredictor
+from .utils import (decode_acceptable, format_timestamp,
+                    keep_segment_instant_rule, make_progress_bar,
+                    progress_update, safe_print, timestamp_spans)
 from .models.whisper.decoding import DecodingOptions, DecodingResult
 from .models.whisper.timing import add_word_timestamps
 from .ops.mel import log_mel_spectrogram
@@ -119,7 +117,7 @@ def transcribe_stable(
         pairs = list(clip_timestamps) + ([None] if len(clip_timestamps) % 2 else [])
         load_sections = [(pairs[i], pairs[i + 1]) for i in range(0, len(pairs), 2)]
 
-    from stable_ts_tpu.audio.denoiser import convert_demucs_kwargs
+    from .audio.denoiser import convert_demucs_kwargs
     denoiser, denoiser_options = convert_demucs_kwargs(
         denoiser, denoiser_options, demucs=demucs, demucs_options=demucs_options)
     denoiser_options = dict(denoiser_options)

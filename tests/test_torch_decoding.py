@@ -131,6 +131,41 @@ def test_beam_decode_matches_jax(jax_knobs, eot_bias, beam_size, patience):
         assert min(len(r.tokens) for r in got) < 224   # a pool filled
 
 
+@pytest.mark.parametrize('eot_bias,beam_size', [(0.0, 5), (0.11, 5)])
+def test_dq_int4_beam_decode_matches_jax(jax_knobs, eot_bias, beam_size):
+    """The quantized path's beam search: int8 weights (dq) and packed int4
+    cross K/V on three windows, token for token, with EOT biased as in
+    test_beam_decode_matches_jax so the pools fill. The logprob sums are
+    held at 1e-5 relative."""
+    from stable_ts_tpu.loaders import WhisperTPU
+    from stable_ts_tpu.models.whisper.model import init_params, tiny_test_dims
+    from stable_ts_tpu.models.whisper.tokenizer import synthetic_byte_ranks
+    from stable_ts_tpu_torch.loaders import from_jax
+    dims = tiny_test_dims()
+    params = init_params(dims, seed=0)
+    dec = params['decoder']
+    axis = np.eye(dims.n_text_state, dtype=np.float32)[0]
+    dec['ln'] = dict(dec['ln'], b=jnp.asarray(axis * 4.0))
+    eot = WhisperTPU(dims, params, ranks=synthetic_byte_ranks()).get_tokenizer(
+        'en', 'transcribe').eot
+    dec['token_emb'] = dec['token_emb'].at[eot].set(jnp.asarray(axis * eot_bias))
+    jax_model = WhisperTPU(dims, params, ranks=synthetic_byte_ranks(), dq=True)
+    port_model = from_jax(jax_model, device='cpu')
+    assert port_model.quantized
+    mel = np.random.default_rng(6).standard_normal((3, 80, 3000)).astype(np.float32)
+    mel[1] *= 0.0
+    mel[2] *= 3.0
+    kw = dict(language='en', temperature=0, beam_size=beam_size, kv_quant=4)
+    ref = jax_model.decode(jnp.asarray(mel), **kw)
+    got = port_model.decode(torch.from_numpy(mel), **kw)
+    for a, b in zip(got, ref):
+        assert a.tokens == b.tokens
+        assert a.avg_logprob == pytest.approx(b.avg_logprob, rel=1e-5)
+        assert a.no_speech_prob == pytest.approx(b.no_speech_prob, rel=1e-5)
+    if eot_bias:
+        assert min(len(r.tokens) for r in got) < 224   # a pool filled
+
+
 def test_beam_orderings_break_ties_as_jax():
     """Equal scores (banned tokens, the -1e30 rows of dead beams) keep the
     lower index first, as jax.lax.top_k and the stable jnp.argsort."""

@@ -200,3 +200,102 @@ def test_logit_epilogue_kernel_matches_twin(cuda, dtype, b, silence, grammar):
         assert ((got[:, col] - ref[:, col]).abs()
                 <= 1e-3 * ref[:, col].abs().clamp_min(1.0)).all(), col
     assert torch.equal(got[:, [1, 4]], ref[:, [1, 4]])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('m,k,n', [(1, 1280, 3840), (5, 5120, 1280), (16, 1280, 5120),
+                                   (17, 1280, 1280), (230, 1280, 5120), (1500, 5120, 1280),
+                                   (3, 80, 100), (70, 96, 33)])
+def test_woq_kernel_matches_twin(cuda, dtype, m, k, n):
+    """Both regimes (M <= 16 and the tiled one) and ragged M, N; the same
+    exact products summed in f32 in another order."""
+    from stable_ts_tpu_torch.models.whisper.quantization import quantize_weight
+    from stable_ts_tpu_torch.ops.woq_matmul import woq_matmul, woq_matmul_ref
+    q, scale = quantize_weight(_randn(cuda, n, k) * 0.05)
+    x = _randn(cuda, m, k, dtype=dtype)
+    before = _build.launches['woq_matmul']
+    got = woq_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert _build.launches['woq_matmul'] == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    # the wrapper casts to x's dtype: bf16 outputs may sit one bf16 step
+    # (2^-8 relative) apart; f32 outputs within 1e-5
+    ref = woq_matmul_ref(x, q, scale).to(dtype)
+    assert _rel(got, ref) <= (2 ** -8 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_woq_kernel_raises_outside_its_contract(cuda):
+    from stable_ts_tpu_torch.ops.woq_matmul import woq_matmul
+    x = _randn(cuda, 2, 64)
+    scale = torch.ones(32, device='cuda')
+    with pytest.raises(TypeError, match='int8'):
+        woq_matmul(x, _randn(cuda, 32, 64), scale)
+    with pytest.raises(ValueError, match='multiple of 16'):
+        woq_matmul(_randn(cuda, 2, 40), torch.zeros((32, 40), dtype=torch.int8,
+                                                    device='cuda'), scale)
+    with pytest.raises(ValueError, match='scale'):
+        woq_matmul(x, torch.zeros((32, 64), dtype=torch.int8, device='cuda'),
+                   scale.double())
+
+
+@pytest.mark.parametrize('windows,g', [(1, 1), (2, 1), (1, 5), (3, 2), (1, 11)])
+def test_int4_cross_kernels_match_twin(cuda, windows, g):
+    """Packed int4 K/V through the cross entry (g = 1) and the group entry
+    (g > 1), each counted under its own name."""
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops.cross_attn import (cross_attn_decode,
+                                                    cross_attn_decode_ref, pack_int4)
+    layers, s, d, n_head = 2, 1500, 1280, 20
+    vals, sc = quantize_rows(_randn(cuda, layers, windows, 2, s, d), bits=4)
+    q = _randn(cuda, windows * g, d) * 0.125
+    name = 'cross_attn_decode_group_int4' if g > 1 else 'cross_attn_decode_int4'
+    before = _build.launches[name]
+    got = cross_attn_decode(q, pack_int4(vals), sc, 1, 1450, n_head, q_per_kv=g,
+                            bits=4)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    ref = cross_attn_decode_ref(q, vals[1, :, 0], vals[1, :, 1], sc[1, :, 0],
+                                sc[1, :, 1], 1450, n_head, q_per_kv=g)
+    # same bf16 rounding points; a weight may round to the neighbouring bf16
+    assert _rel(got, ref) <= 1e-3
+
+
+def test_int4_cross_kernels_raise_on_a_wrong_packing(cuda):
+    from stable_ts_tpu_torch.ops.cross_attn import cross_attn_decode
+    d, n_head = 128, 2
+    q = _randn(cuda, 1, d)
+    sc = torch.ones((1, 1, 2, 10), device='cuda')
+    packed = torch.zeros((1, 1, 2, 10, d // 2), dtype=torch.int8, device='cuda')
+    with pytest.raises(ValueError, match='bits=4'):
+        cross_attn_decode(q, packed.float(), sc, 0, 10, n_head, bits=4)
+    with pytest.raises(ValueError, match='bits=4'):
+        cross_attn_decode(_randn(cuda, 1, d + 1), packed, sc, 0, 10, n_head, bits=4)
+    with pytest.raises(ValueError, match='width'):
+        cross_attn_decode(q, packed, sc, 0, 10, n_head)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('m,v,d', [(1, 51866, 1280), (5, 51866, 1280), (16, 51866, 1280),
+                                   (40, 4100, 384), (3, 2048, 64)])
+def test_vocab_kernel_matches_twin(cuda, dtype, m, v, d):
+    from stable_ts_tpu_torch.ops.vocab_proj import vocab_proj, vocab_proj_ref
+    x = _randn(cuda, m, d, dtype=dtype)
+    emb = (_randn(cuda, v, d) * 0.05).to(dtype)
+    before = _build.launches['vocab_proj']
+    got = vocab_proj(x, emb)
+    torch.cuda.synchronize()
+    assert _build.launches['vocab_proj'] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, v)
+    # f32 sums of the same exact products, in another order
+    assert _rel(got, vocab_proj_ref(x, emb)) <= 1e-4
+
+
+def test_vocab_kernel_raises_outside_its_contract(cuda):
+    from stable_ts_tpu_torch.ops.vocab_proj import vocab_proj
+    emb = _randn(cuda, 2048, 64)
+    with pytest.raises(ValueError, match='2-D'):
+        vocab_proj(_randn(cuda, 1, 1, 64), emb)
+    with pytest.raises(TypeError, match='bf16 or f32'):
+        vocab_proj(_randn(cuda, 1, 64), emb.half())
+    with pytest.raises(ValueError, match='16-byte'):
+        vocab_proj(_randn(cuda, 1, 6), _randn(cuda, 2048, 6))

@@ -8,7 +8,10 @@ interpret mode (STABLE_TS_TPU_CROSS=interpret) and the int8 self cache
 with its greedy logit epilogue off (the unfused filter chain) and in
 interpret mode (STABLE_TS_TPU_EPI); the port's greedy loop always takes
 the epilogue. Text and word-level SRT bytes must be equal, and every
-word's start and end within 0.021 s (one 20 ms frame plus rounding)."""
+word's start and end within 0.021 s (one 20 ms frame plus rounding). The
+same holds for a ``dq`` model (int8 weights) on packed int4 cross K/V.
+A fresh interpreter that transcribes with the port loads neither jax nor
+any module of stable_ts_tpu."""
 import os
 import subprocess
 import sys
@@ -52,6 +55,34 @@ def test_transcribe_matches_jax(kv_quant, epilogue, monkeypatch):
         assert abs(a.start - b.start) <= 0.021 and abs(a.end - b.end) <= 0.021
 
 
+@pytest.mark.parametrize('epilogue', ['0', 'interpret'], ids=['epi_off', 'epi_interpret'])
+def test_dq_int4_transcribe_matches_jax(epilogue, monkeypatch):
+    """The quantized path: int8 weights (dq) through the weight-only matmul
+    (JAX: its CPU ``astype`` product, the same function) and packed int4
+    cross K/V. Text and word-level SRT bytes equal, word times within
+    0.021 s."""
+    monkeypatch.setenv('STABLE_TS_TPU_CROSS', 'interpret')
+    monkeypatch.setenv('STABLE_TS_TPU_SELFKV', '1')
+    monkeypatch.setenv('STABLE_TS_TPU_EPI', epilogue)
+    from stable_ts_tpu.loaders import load_test_model as load_jax
+    from stable_ts_tpu_torch.loaders import from_jax
+    jax_model = load_jax(alignment_heads=HEADS, dq=True)
+    port_model = from_jax(jax_model, device='cpu')
+    assert port_model.quantized
+    audio = _audio()
+    kw = dict(language='en', temperature=0, verbose=None, kv_quant=4)
+    ref = jax_model.transcribe(audio, **kw)
+    got = port_model.transcribe(audio, **kw)
+    assert got.text == ref.text
+    assert got.to_srt_vtt(word_level=True) == ref.to_srt_vtt(word_level=True)
+    words_r = [w for s in ref.segments for w in s.words]
+    words_g = [w for s in got.segments for w in s.words]
+    assert len(words_g) == len(words_r) > 0
+    for a, b in zip(words_g, words_r):
+        assert a.word == b.word
+        assert abs(a.start - b.start) <= 0.021 and abs(a.end - b.end) <= 0.021
+
+
 def test_fresh_interpreter_never_imports_jax(tmp_path):
     script = textwrap.dedent(f"""
         import sys
@@ -70,8 +101,15 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
                    dict(temperature=0, beam_size=2)):
             assert model.transcribe(audio, language='en', verbose=None,
                                     **kw).segments
+        dq = load_test_model(seed=0, alignment_heads={HEADS!r}, dq=True)
+        assert dq.quantized
+        for kw in (dict(temperature=0), dict(temperature=0, beam_size=2)):
+            assert dq.transcribe(audio, language='en', verbose=None, kv_quant=4,
+                                 **kw).segments
         assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
-        assert 'stable_ts_tpu.models.whisper.model' not in sys.modules
+        old = sorted(m for m in sys.modules
+                     if m == 'stable_ts_tpu' or m.startswith('stable_ts_tpu.'))
+        assert not old, old
         print('NO_JAX_OK')
     """)
     env = dict(os.environ, OMP_NUM_THREADS='2')
@@ -98,11 +136,15 @@ def test_cuda_without_a_gpu_raises():
 
 @pytest.mark.parametrize('options', [dict(kv_quant=4)], ids=['int4_kv'])
 def test_unported_decoding_options_raise(options):
+    """Packed int4 cross K/V, the last option that was not ported, now
+    decodes; a cross K/V width with no grid still raises."""
     from stable_ts_tpu_torch.loaders import load_test_model
     model = load_test_model(seed=0)
     mel = torch.zeros((80, 3000))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        model.decode(mel, language='en', **options)
+    (result,) = model.decode(mel, language='en', sample_len=4, **options)
+    assert len(result.tokens) <= 4
+    with pytest.raises(ValueError, match='bits'):
+        model.decode(mel, language='en', sample_len=4, kv_quant=9)
 
 
 def test_multilingual_without_language_detects_it():
