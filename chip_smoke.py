@@ -3,7 +3,7 @@
 each against its plain PyTorch twin, then drives four paths on Whisper
 large-v3 (random bf16 weights from a seed, the canonical alignment heads,
 a synthetic rank table the size of the multilingual vocabulary) through
-``WhisperTorch.transcribe``:
+``WhisperTorch.transcribe``, and the train step:
 
 - greedy: 75 s and 20 s with language='en', temperature=0 (the logit
   epilogue on every step);
@@ -13,11 +13,17 @@ a synthetic rank table the size of the multilingual vocabulary) through
   weights fail every rung, so every rung runs);
 - dq: the same weights quantized to int8 on the card (``dq=True``), with
   packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
-  and 30 s beam_size=5 with no language.
+  and 30 s beam_size=5 with no language;
+- train: a fresh bf16 model, three steps of ``make_train_step`` (AdamW as
+  optax.adamw(1e-5)) at batch 2 windows and 64 tokens, the second with a
+  label mask; each step must launch the flash forward and both backward
+  kernels 64 times (32 encoder + 32 decoder cross layers) and leave every
+  parameter a finite, non-zero gradient.
 
-The launch counts are reset before each path and read after it; the script
-fails unless each path launched the kernels it runs, all eleven entries
-among them.
+The launch counts are reset before each path (each train step) and read
+after it; the script fails unless each path launched the kernels it runs,
+all thirteen entries among them. A tiny f32 model also takes three train
+steps on the CPU (twins) and on the card (kernels), which must agree.
 
     python3 chip_smoke.py        # needs one CUDA GPU; exits non-zero on any failure
 
@@ -29,6 +35,7 @@ call computes the same function, that call's time; the last line is
 beside it, the script fails and prints no result.
 """
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -279,6 +286,7 @@ def kernel_checks(torch, results: dict) -> None:
     int4_cross_checks(torch, results, randn)
     woq_checks(torch, results, randn)
     vocab_checks(torch, results, randn)
+    flash_bwd_checks(torch, results, randn)
 
 
 def epilogue_checks(torch, results: dict, randn, gen) -> None:
@@ -426,6 +434,203 @@ def vocab_checks(torch, results: dict, randn) -> None:
             results['vocab_proj'] = numbers
 
 
+def flash_bwd_checks(torch, results: dict, randn) -> None:
+    """The flash backward at the train step's large-v3 shapes (20 heads of
+    64, bf16): encoder self-attention (2, 1500, 1280) against 1500 keys,
+    decoder cross-attention (2, 63, 1280) against 1500 frames, and one f32
+    shape. The forward's lse against the twin's logsumexp; both backward
+    kernels, fed the kernel's own output, against the backward twin, within
+    2e-2 (bf16: the gradients round to bf16, 2^-8 relative) or 1e-4 (f32:
+    sums in another order) of each tensor's max; and a rerun equal bit for
+    bit (no atomics). Times: each kernel, its twin (the twin computing only
+    that kernel's outputs), the bound, and the backward alone of PyTorch's
+    fused attention on the same (B, heads, T, d_head) views."""
+    import torch.nn.functional as F
+    from stable_ts_tpu_torch.ops import flash_attn as fa
+    d, h = 1280, 20
+    dh = d // h
+    scale = dh ** -0.5
+    for b, t, what, dtype, tol in (
+            (2, 1500, 'encoder bf16 (2,1500,1280)', torch.bfloat16, 2e-2),
+            (2, 63, 'cross bf16 (2,63,1280)x1500', torch.bfloat16, 2e-2),
+            (1, 300, 'f32 (1,300,1280)x1500', torch.float32, 1e-4)):
+        s = 1500
+        q, do = randn(b, t, d, dtype=dtype), randn(b, t, d, dtype=dtype)
+        k, v = randn(b, s, d, dtype=dtype), randn(b, s, d, dtype=dtype)
+        o, lse = fa._flash_cuda(q, k, v, h, scale, return_lse=True)
+        _, lse_ref = fa.flash_attention_ref(q, k, v, h, scale, return_lse=True)
+        torch.cuda.synchronize()
+        check('flash_attn', lse, lse_ref, 1e-5, f'{what} lse')
+        delta = fa.attention_delta(o, do, h)
+        args = (q, k, v, lse, do, delta, h, scale)
+        dk, dv = fa._bwd_dkv_cuda(*args)
+        dq = fa._bwd_dq_cuda(*args)
+        ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, h, scale)
+        torch.cuda.synchronize()
+        err_kv = max(check('flash_attn_bwd_dkv', dk, ref_dk, tol, f'{what} dK'),
+                     check('flash_attn_bwd_dkv', dv, ref_dv, tol, f'{what} dV'))
+        err_q = check('flash_attn_bwd_dq', dq, ref_dq, tol, f'{what} dQ')
+        dk2, dv2 = fa._bwd_dkv_cuda(*args)
+        dq2 = fa._bwd_dq_cuda(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
+        log(f'[kernel] flash backward {what}: rerun bit-identical: {same}')
+        if not same:
+            raise AssertionError(f'flash backward {what}: a rerun differs')
+        ms_kv = cuda_ms(lambda: fa._bwd_dkv_cuda(*args))
+        ms_q = cuda_ms(lambda: fa._bwd_dq_cuda(*args))
+        plain_kv = cuda_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, h, scale, needs=(False, True, True)), iters=5)
+        plain_q = cuda_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, h, scale, needs=(True, False, False)), iters=5)
+        # the library call: the backward alone of PyTorch's fused attention
+        # on the same tensors viewed as (B, heads, T, d_head); graph built once
+        qh, kh, vh = (x.view(b, -1, h, dh).transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        doh = do.view(b, t, h, dh).transpose(1, 2)
+        lib_kv = cuda_ms(lambda: torch.autograd.grad(out, (kh, vh), doh, retain_graph=True))
+        lib_q = cuda_ms(lambda: torch.autograd.grad(out, (qh,), doh, retain_graph=True))
+        lib_all = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                      retain_graph=True))
+        del out
+        kind = 'bf16' if dtype == torch.bfloat16 else 'f32'
+        # each input read once (q, k, v, dO, lse, D), each output written once
+        inputs = nbytes(q, k, v, do, lse, delta)
+        work = b * t * s * d
+        n_kv = entry(err_kv, ms_kv, plain_kv, inputs + nbytes(dk, dv), 8 * work, kind, lib_kv)
+        n_q = entry(err_q, ms_q, plain_q, inputs + nbytes(dq), 6 * work, kind, lib_q)
+        whole = bound(inputs + nbytes(dq, dk, dv), 10 * work, kind)
+        log(f'[kernel] flash backward {what}: dkv {ms_kv:.4f} ms (twin {plain_kv:.4f}, '
+            f'SDPA backward dK,dV {lib_kv:.4f}, bound {n_kv["bound_ms"]:.4f} '
+            f'{n_kv["bound_by"]}); dq {ms_q:.4f} ms (twin {plain_q:.4f}, SDPA backward '
+            f'dQ {lib_q:.4f}, bound {n_q["bound_ms"]:.4f} {n_q["bound_by"]}); both '
+            f'{ms_kv + ms_q:.4f} ms against SDPA backward dQ,dK,dV {lib_all:.4f} ms '
+            f'(bound {whole["bound_ms"]:.4f} {whole["bound_by"]})')
+        if t == 1500:
+            results['flash_attn_bwd_dkv'] = n_kv
+            results['flash_attn_bwd_dq'] = n_q
+
+
+def tiny_train_parity(torch) -> None:
+    """The tiny f32 model (seeded) takes three train steps on the CPU (every
+    op through its twin) and on the card (the kernels), the second with a
+    label mask: the losses within 1e-4 relative, and step 1's gradients
+    within 1e-3 of each tensor's max (f32 sums in other orders)."""
+    import numpy as np
+    from stable_ts_tpu_torch.models.whisper.dims import tiny_test_dims
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.models.whisper.train import make_train_step
+    dims = tiny_test_dims()
+    cpu = init_params(dims, seed=0, device='cpu')
+    gpu = copy.deepcopy(cpu).to('cuda')
+    rng = np.random.default_rng(31)
+    mel = rng.standard_normal((2, dims.n_mels, 3000)).astype(np.float32)
+    tokens = rng.integers(0, dims.n_vocab, (2, 16))
+    mask = np.ones((2, 16), np.int64)
+    mask[:, :3] = 0
+    init_opt_state, train_step = make_train_step(dims)
+    opt_c, opt_g = init_opt_state(cpu), init_opt_state(gpu)
+    for i in range(3):
+        m = mask if i == 1 else None
+        lc = train_step(cpu, opt_c, mel, tokens, m).item()
+        lg = train_step(gpu, opt_g, mel, tokens, m).item()
+        rel = abs(lg - lc) / abs(lc)
+        worst = 0.0
+        if i == 0:
+            for pc, pg in zip(cpu.parameters(), gpu.parameters()):
+                worst = max(worst, rel_err(pg.grad.cpu(), pc.grad)[1])
+        ok = rel <= 1e-4 and worst <= 1e-3
+        log(f'[tiny] train step {i + 1}{" (label mask)" if m is not None else ""}: '
+            f'loss CPU {lc:.6f}, GPU {lg:.6f}, rel {rel:.2e} (tol 1e-4)'
+            + (f'; worst gradient {worst:.2e} of its max (tol 1e-3)' if i == 0 else '')
+            + f' {"OK" if ok else "FAIL"}')
+        if not ok:
+            raise AssertionError(f'tiny train step {i + 1}: GPU differs from CPU')
+
+
+def train_path(torch, dims, audio) -> dict:
+    """The train step on large-v3 at full width (random bf16 weights from
+    seed 0): three steps of ``make_train_step(dims)`` with its default
+    AdamW, batch 2 windows (the log-mel of two 30-s clips) and 64 seeded
+    tokens, the second step with the first 3 positions masked. Each step
+    must launch exactly 64 flash forwards, 64 dkv and 64 dq backward
+    kernels; after step 1 every parameter must hold a finite, non-zero
+    gradient; every loss must be finite. Returns the launches summed over
+    the steps."""
+    import numpy as np
+    from stable_ts_tpu_torch import _build
+    from stable_ts_tpu_torch.models.whisper import train
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.ops.mel import log_mel_spectrogram
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(dims, seed=0, dtype=torch.bfloat16)   # on the card by default
+    init_opt_state, train_step = train.make_train_step(dims)
+    opt = init_opt_state(model)
+    clips = np.stack([audio[:30 * SR], audio[30 * SR:60 * SR]])
+    mel = log_mel_spectrogram(clips, n_mels=dims.n_mels, device='cuda')
+    tokens = np.random.default_rng(5).integers(0, dims.n_vocab, (2, 64))
+    mask = np.ones((2, 64), np.int64)
+    mask[:, :3] = 0
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f'[train] bf16 model of {n_params / 1e9:.3f} B parameters and AdamW in '
+        f'{time.perf_counter() - t0:.1f} s; mel {tuple(mel.shape)}, tokens {tokens.shape}')
+    marks = {}
+
+    def timed(fn, start, end):
+        def inner(*a, **kw):
+            torch.cuda.synchronize()
+            marks[start] = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            marks[end] = time.perf_counter()
+            return out
+        return inner
+
+    loss_fn = train.cross_entropy_loss
+    train.cross_entropy_loss = timed(loss_fn, 'fwd0', 'fwd1')
+    opt.step = timed(opt.step, 'opt0', 'opt1')
+    counts = {}
+    try:
+        for i in range(3):
+            m = mask if i == 1 else None
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = train_step(model, opt, mel, tokens, m).item()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            step_counts = _build.launch_counts()
+            log(f'[train] step {i + 1}{" (label mask)" if m is not None else ""}: '
+                f'loss {loss:.4f}, wall {wall:.3f} s: forward '
+                f'{marks["fwd1"] - marks["fwd0"]:.3f} s, backward '
+                f'{marks["opt0"] - marks["fwd1"]:.3f} s, optimizer '
+                f'{marks["opt1"] - marks["opt0"]:.3f} s; launches {step_counts}')
+            if not np.isfinite(loss):
+                raise AssertionError(f'train step {i + 1}: loss {loss}')
+            for name in ('flash_attn', 'flash_attn_bwd_dkv', 'flash_attn_bwd_dq'):
+                if step_counts.get(name, 0) != 64:
+                    raise AssertionError(f'train step {i + 1}: {name} launched '
+                                         f'{step_counts.get(name, 0)} times, not 64')
+            if i == 0:
+                bad = [name for name, p in model.named_parameters()
+                       if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                       or p.grad.float().norm().item() == 0.0]
+                n_tensors = sum(1 for _ in model.parameters())
+                log(f'[train] after step 1: {n_tensors - len(bad)} of {n_tensors} '
+                    f'parameter tensors hold a finite, non-zero gradient')
+                if bad:
+                    raise AssertionError(f'missing, non-finite or zero gradients: {bad[:10]}')
+            for name, n in step_counts.items():
+                counts[name] = counts.get(name, 0) + n
+    finally:
+        train.cross_entropy_loss = loss_fn
+    log(f'[train] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+    return counts
+
+
 def tiny_parity(torch) -> None:
     """The tiny f32 model transcribes the same seeded audio alike on the
     CPU (every op through its twin) and on the GPU (through the kernels):
@@ -437,7 +642,7 @@ def tiny_parity(torch) -> None:
              ).astype(np.float32)
     for dq, kv_quant, what in ((False, True, 'f32 weights, int8 cross K/V'),
                                (True, 4, 'int8 weights (dq), int4 cross K/V')):
-        cpu = load_test_model(seed=0, alignment_heads=HEADS_TINY, dq=dq)
+        cpu = load_test_model(seed=0, device='cpu', alignment_heads=HEADS_TINY, dq=dq)
         gpu = WhisperTorch(cpu.dims, copy.deepcopy(cpu.params), device='cuda',
                            name='test-tiny', ranks=cpu._ranks,
                            alignment_heads=HEADS_TINY)
@@ -498,6 +703,7 @@ def main() -> int:
     results = {}
     kernel_checks(torch, results)
     tiny_parity(torch)
+    tiny_train_parity(torch)
 
     # -- the paths on large-v3: greedy, beam with language detection, ladder -----------
     from stable_ts_tpu_torch.loaders import WhisperTorch
@@ -570,10 +776,17 @@ def main() -> int:
     ]
     for name, n in drive_paths(torch, dq_model, dq_paths, ladder).items():
         counts[name] = counts.get(name, 0) + n
-    loaded = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
-                    or m == 'stable_ts_tpu' or m.startswith('stable_ts_tpu.'))
+
+    # -- the train path: a fresh float model (the dq path quantized the old one) ---------
+    del dq_model, params
+    gc.collect()   # the timed methods drive_paths set refer to their model
+    torch.cuda.empty_cache()
+    for name, n in train_path(torch, dims, audio).items():
+        counts[name] = counts.get(name, 0) + n
+    loaded = sorted(m for m in sys.modules if m in ('jax', 'optax', 'stable_ts_tpu')
+                    or m.startswith(('jax.', 'optax.', 'stable_ts_tpu.')))
     if loaded:
-        raise AssertionError(f'jax or stable_ts_tpu was imported: {loaded[:10]}')
+        raise AssertionError(f'jax, optax or stable_ts_tpu was imported: {loaded[:10]}')
 
     src = 'stable_ts_tpu_torch/csrc/'
     meta = {
@@ -603,6 +816,14 @@ def main() -> int:
         'vocab_proj': (src + 'vocab_proj.cu',
                        'stable_ts_tpu/ops/vocab_proj.py:34 _kernel'
                        ' (vocab_logits_kernel :46)'),
+        'flash_attn_bwd_dkv': (src + 'flash_attn_bwd.cu',
+                               'stable_ts_tpu/models/whisper/model.py:278 / :372 Pallas'
+                               ' flash_attention backward: _flash_attention_bwd_dkv'
+                               ' (flash_attention.py:941, pallas_call :1121)'),
+        'flash_attn_bwd_dq': (src + 'flash_attn_bwd.cu',
+                              'stable_ts_tpu/models/whisper/model.py:278 / :372 Pallas'
+                              ' flash_attention backward: _flash_attention_bwd_dq'
+                              ' (flash_attention.py:1287, pallas_call :1456)'),
     }
     kernels = [dict(name=name, route='cuda', source=meta[name][0],
                     replaces=meta[name][1], launches=counts.get(name, 0),

@@ -2,9 +2,10 @@
 
 The ``transcribe`` path (log-mel -> encoder -> language detection ->
 greedy, sampled (temperature ladder with best_of) or beam-search decoding
-under the timestamp grammar -> cross-attention DTW word timing -> SRT) runs
-in PyTorch on one NVIDIA Hopper GPU, with hand-written CUDA kernels where
-the JAX package runs Pallas kernels on the TPU (flash attention, self- and
+under the timestamp grammar -> cross-attention DTW word timing -> SRT) and
+the train step (teacher-forced cross-entropy, AdamW) run in PyTorch on one
+NVIDIA Hopper GPU, with hand-written CUDA kernels where the JAX package
+runs Pallas kernels on the TPU (flash attention and its backward, self- and
 cross-attention decode with their beam and window-group entries, the
 greedy logit epilogue, the DTW cost, the int8 weight-only matmul of
 ``dq`` models, the streamed vocab projection). The framework-free host
@@ -22,6 +23,8 @@ _LAZY = {
     'load_test_model': 'stable_ts_tpu_torch.loaders',
     'from_jax': 'stable_ts_tpu_torch.loaders',
     'transcribe_stable': 'stable_ts_tpu_torch.transcribe',
+    'make_train_step': 'stable_ts_tpu_torch.models.whisper.train',
+    'cross_entropy_loss': 'stable_ts_tpu_torch.models.whisper.train',
     'launch_counts': 'stable_ts_tpu_torch._build',
     'reset_launch_counts': 'stable_ts_tpu_torch._build',
 }

@@ -41,9 +41,17 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of csrc/*.cu's entry points (all return a cudaError_t as int)
 _SIGNATURES = {
-    # q, k, v, o, dtype, B, H, T, S, dh, q/k/v/o batch+row strides, scale, stream
-    'flash_attn_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse (or null), dtype, B, H, T, S, dh, q/k/v/o batch+row
+    # strides, scale, stream
+    'flash_attn_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    # q, k, v, dO, lse, D, dk, dv, dtype, B, H, T, S, dh, q/k/v batch+row
+    # strides, scale, stream
+    'flash_attn_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    # ... as flash_attn_bwd_dkv with dq in place of dk, dv
+    'flash_attn_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     # q, k, v, k_scale, v_scale, out, cache dtype, B, H, dh, n_keys,
     # kv batch stride, kv row stride, scale batch stride, stream
     'self_attn_decode': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -20,6 +20,9 @@
 //   - online softmax in f32, updated once per 16 keys.
 // Rows are addressed by (batch, row) strides so q/k/v may be views of
 // (B, T, n_head * d_head) projections: no head split or merge copies.
+// For the backward (flash_attn_bwd.cu) the kernel can also write each
+// row's logsumexp, m + log(l), which the TPU kernel keeps as its l and m
+// residuals; inference passes a null pointer and writes nothing more.
 #include "common.cuh"
 
 namespace {
@@ -31,7 +34,8 @@ constexpr int FA_SUB = 16;  // keys per online-softmax update
 template <typename T, int DH>
 __global__ void __launch_bounds__(FA_BQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int t_len,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int t_len,
                  int s_len, long long q_sb, long long q_st, long long k_sb,
                  long long k_st, long long v_sb, long long v_st,
                  long long o_sb, long long o_st, float scale) {
@@ -118,11 +122,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = o + b * o_sb + row * o_st + h * DH;
 #pragma unroll
     for (int e = 0; e < DH; ++e) ob[e] = from_float<T>(acc[e] * inv);
+    // lse is (B, H, T) f32: gridDim.y is the head count
+    if (lse != nullptr) lse[(static_cast<long long>(b) * gridDim.y + h) * t_len + row] = m + logf(l);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
            int n_head, int t_len, int s_len, int d_head, long long q_sb,
            long long q_st, long long k_sb, long long k_st, long long v_sb,
            long long v_st, long long o_sb, long long o_st, float scale,
@@ -131,7 +137,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 #define FA_LAUNCH(DH)                                                      \
   flash_fwd_kernel<T, DH><<<grid, FA_BQ, 0, stream>>>(                     \
       static_cast<const T*>(q), static_cast<const T*>(k),                  \
-      static_cast<const T*>(v), static_cast<T*>(o), t_len, s_len, q_sb,    \
+      static_cast<const T*>(v), static_cast<T*>(o), lse, t_len, s_len, q_sb, \
       q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, scale)
   switch (d_head) {
     case 32: FA_LAUNCH(32); break;
@@ -146,8 +152,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 
 // q/k/v/o: row t of head h of batch b starts at ptr + b * sb + t * st +
 // h * d_head (strides in elements); dtype is f32 or bf16 for all four.
+// lse: null, or an f32 (B, H, T) array that receives each row's logsumexp
+// of the scaled scores.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int dtype, int batch, int n_head,
+                              void* o, void* lse, int dtype, int batch, int n_head,
                               int t_len, int s_len, int d_head, long long q_sb,
                               long long q_st, long long k_sb, long long k_st,
                               long long v_sb, long long v_st, long long o_sb,
@@ -156,11 +164,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (t_len <= 0 || s_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case DT_BF16:
-      return launch<__nv_bfloat16>(q, k, v, o, batch, n_head, t_len, s_len,
+      return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), batch,
+                                   n_head, t_len, s_len,
                                    d_head, q_sb, q_st, k_sb, k_st, v_sb, v_st,
                                    o_sb, o_st, scale, st);
     case DT_F32:
-      return launch<float>(q, k, v, o, batch, n_head, t_len, s_len, d_head,
+      return launch<float>(q, k, v, o, static_cast<float*>(lse), batch, n_head,
+                           t_len, s_len, d_head,
                            q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st,
                            scale, st);
     default:

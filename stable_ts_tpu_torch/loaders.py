@@ -2,8 +2,9 @@
 stable_ts_tpu/loaders.py:WhisperTPU, the method surface ``transcribe``
 uses).
 
-A model lives on one explicit device. Asking for ``cuda`` on a machine
-without a GPU raises; nothing moves to the CPU behind the caller's back.
+A model lives on one explicit device, the GPU unless the caller asks for
+``device='cpu'``. Asking for ``cuda`` on a machine without a GPU raises;
+nothing moves to the CPU behind the caller's back.
 Checkpoint loading waits for weights in the repository (ROADMAP.md);
 :func:`load_test_model` and :func:`from_jax` build models from a seed or
 from a JAX model's weights. ``dq=True`` quantizes the q/k/v/out/fc1/fc2
@@ -129,7 +130,7 @@ class WhisperTorch:
         return transcribe_stable(self, audio, **kwargs)
 
 
-def load_test_model(seed: int = 0, device='cpu', **kwargs) -> WhisperTorch:
+def load_test_model(seed: int = 0, device='cuda', **kwargs) -> WhisperTorch:
     """A miniature random-weight model (tiny_test_dims, drawn from a torch
     Generator) wired to the synthetic byte tokenizer; ``kwargs`` go to
     :class:`WhisperTorch` (``dq=True``, ``alignment_heads``)."""
@@ -140,7 +141,7 @@ def load_test_model(seed: int = 0, device='cpu', **kwargs) -> WhisperTorch:
                         ranks=synthetic_byte_ranks(), **kwargs)
 
 
-def from_jax(model_tpu, device='cpu') -> WhisperTorch:
+def from_jax(model_tpu, device='cuda') -> WhisperTorch:
     """The port's model with the weights, dims, tokenizer source and
     alignment heads of a ``stable_ts_tpu`` WhisperTPU (its parameters are
     downloaded to numpy). A ``dq`` model's int8 weights and scales carry

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .dims import ModelDimensions
-from .model import Whisper
+from .model import Whisper, resolve_device
 from .quantization import quantize_params
 
 
@@ -72,12 +72,14 @@ def jax_state_dict(params: dict, dims: ModelDimensions) -> dict:
 
 @torch.no_grad()
 def from_jax_params(params: dict, dims: ModelDimensions,
-                    device='cpu') -> Whisper:
-    """The port's model holding the same weights as a JAX pytree whose
-    leaves are numpy arrays (or anything ``np.asarray`` takes), in the
-    pytree's float dtype (f32 or bf16). A pytree with quantized linears
-    gives a model with :class:`~.quantization.QuantizedLinear` holding the
-    same int8 values and scales."""
+                    device='cuda') -> Whisper:
+    """The port's model on ``device`` holding the same weights as a JAX
+    pytree whose leaves are numpy arrays (or anything ``np.asarray``
+    takes), in the pytree's float dtype (f32 or bf16). A pytree with
+    quantized linears gives a model with
+    :class:`~.quantization.QuantizedLinear` holding the same int8 values
+    and scales. Its parameters do not require gradients."""
+    device = resolve_device(device)
     state = jax_state_dict(params, dims)
     dtype = (torch.bfloat16 if state['decoder.token_emb'].dtype.name == 'bfloat16'
              else torch.float32)

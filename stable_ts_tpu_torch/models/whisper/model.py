@@ -170,13 +170,18 @@ class TextDecoder(nn.Module):
         least 2048 goes to the vocab-projection kernel (its twin on the
         CPU), the shapes the JAX package sends its kernel (model.py:150).
         Other shapes (prefill, the teacher-forced pass) multiply by an exact
-        f32 copy of a bf16 embedding (made once per weight version), which
-        equals bf16 products summed in f32 — what the JAX package's
-        ``preferred_element_type=float32`` computes."""
+        f32 copy of a bf16 embedding, which equals bf16 products summed in
+        f32 — what the JAX package's ``preferred_element_type=float32``
+        computes. The copy is cached (once per weight version) only when no
+        gradient is wanted; when one is, the product is differentiable, so
+        the tied embedding gets the projection's gradient as well as the
+        lookup's."""
         if (x.dim() == 2 and x.shape[0] <= MAX_ROWS
                 and self.token_emb.shape[0] >= MIN_VOCAB):
             return vocab_proj(x, self.token_emb)
         w = self.token_emb
+        if torch.is_grad_enabled() and w.requires_grad:
+            return x.float() @ w.float().t()
         if w.dtype != torch.float32:
             version = w._version
             if self._emb_f32 is None or self._emb_f32[0] != version:
@@ -432,12 +437,13 @@ def resolve_device(device) -> torch.device:
 
 @torch.no_grad()
 def init_params(dims: ModelDimensions, seed: int = 0,
-                dtype: torch.dtype = torch.float32, device='cpu') -> Whisper:
+                dtype: torch.dtype = torch.float32, device='cuda') -> Whisper:
     """A random-weight model drawn from a ``torch.Generator`` on ``device``
     (the same distributions as the JAX package's init_params, not the same
     numbers): linear weights N(0, 1/d_in), zero biases, unit layer norms,
     convs N(0, 0.02^2), token embedding N(0, 0.02^2), text positions
-    N(0, 0.01^2), sinusoidal audio positions."""
+    N(0, 0.01^2), sinusoidal audio positions. Its parameters do not
+    require gradients (training turns them on: ``train.py``)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Whisper(dims, device='meta', dtype=dtype).to_empty(device=device)

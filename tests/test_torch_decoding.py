@@ -300,7 +300,7 @@ def test_group_decoder_steps_match_jax(mode, monkeypatch):
     from stable_ts_tpu_torch.models.whisper.dims import tiny_test_dims
     dims = tiny_test_dims()
     params = jm.init_params(jm.tiny_test_dims(), seed=9)
-    model = from_jax_params(params, dims)
+    model = from_jax_params(params, dims, device='cpu')
     rng = np.random.default_rng(10)
     windows, g, ctx, prompt = 2, 3, 128, 3
     rows = windows * g

@@ -299,3 +299,90 @@ def test_vocab_kernel_raises_outside_its_contract(cuda):
         vocab_proj(_randn(cuda, 1, 64), emb.half())
     with pytest.raises(ValueError, match='16-byte'):
         vocab_proj(_randn(cuda, 1, 6), _randn(cuda, 2048, 6))
+
+
+def _flash_views(gen, b, t, s, n_head, dh, dtype):
+    """q, k, v as column slices of wider projections (row strides 3d, 2d),
+    as views of fused projections would be."""
+    d = n_head * dh
+    q = _randn(gen, b, t, 3 * d, dtype=dtype)[..., d:2 * d]
+    kv = _randn(gen, b, s, 2 * d, dtype=dtype)
+    return q, kv[..., :d], kv[..., d:]
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('dh', [32, 64])
+@pytest.mark.parametrize('t,s', [(1, 1), (63, 1500), (100, 77), (300, 300)])
+def test_flash_backward_kernels_match_twin(cuda, dtype, tol, dh, t, s):
+    """The forward's lse, then flash_attn_bwd_dkv and flash_attn_bwd_dq on
+    the kernel's own output against the twins, and a rerun of each equal
+    bit for bit (no atomics: one thread sums each row in a fixed order).
+    f32: sums in another order; bf16: the outputs round to bf16."""
+    from stable_ts_tpu_torch.ops import flash_attn as fa
+    n_head = 3
+    scale = dh ** -0.5
+    q, k, v = _flash_views(cuda, 2, t, s, n_head, dh, dtype)
+    o, lse = fa._flash_cuda(q, k, v, n_head, scale, return_lse=True)
+    _, lse_ref = fa.flash_attention_ref(q, k, v, n_head, scale, return_lse=True)
+    assert lse.shape == (2, n_head, t) and lse.dtype == torch.float32
+    assert _rel(lse, lse_ref) <= 1e-5
+    do = _randn(cuda, 2, t, n_head * dh, dtype=dtype)
+    delta = fa.attention_delta(o, do, n_head)
+    before = dict(_build.launches)
+    dk, dv = fa._bwd_dkv_cuda(q, k, v, lse, do, delta, n_head, scale)
+    dq = fa._bwd_dq_cuda(q, k, v, lse, do, delta, n_head, scale)
+    torch.cuda.synchronize()
+    assert _build.launches['flash_attn_bwd_dkv'] == before.get('flash_attn_bwd_dkv', 0) + 1
+    assert _build.launches['flash_attn_bwd_dq'] == before.get('flash_attn_bwd_dq', 0) + 1
+    refs = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, n_head, scale)
+    for name, got, ref in zip('qkv', (dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        if s == 1 and name != 'v':
+            # one key: P = 1, so dS = dP - D = 0 up to rounding
+            assert got.float().abs().max().item() <= 1e-4, name
+        else:
+            assert _rel(got, ref) <= tol, name
+    dk2, dv2 = fa._bwd_dkv_cuda(q, k, v, lse, do, delta, n_head, scale)
+    dq2 = fa._bwd_dq_cuda(q, k, v, lse, do, delta, n_head, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
+
+
+def test_flash_backward_raises_outside_its_contract(cuda):
+    from stable_ts_tpu_torch.ops import flash_attn as fa
+    q, k, v = (_randn(cuda, 1, n, 96) for n in (4, 9, 9))
+    o, lse = fa._flash_cuda(q, k, v, 3, 0.125, return_lse=True)
+    delta = fa.attention_delta(o, o, 3)
+    with pytest.raises(ValueError, match='d_head 32 or 64'):
+        fa.flash_attention_bwd(q, k, v, o, lse, o, 2, 0.125)   # d_head 48
+    with pytest.raises(TypeError, match='one dtype'):
+        fa._bwd_dq_cuda(q, k.to(torch.bfloat16), v, lse, o, delta, 3, 0.125)
+    with pytest.raises(ValueError, match='logsumexp'):
+        fa._bwd_dq_cuda(q, k, v, None, o, delta, 3, 0.125)
+    with pytest.raises(ValueError, match='contiguous'):
+        fa._bwd_dkv_cuda(q, k, v, lse, _randn(cuda, 1, 96, 4).transpose(1, 2),
+                         delta, 3, 0.125)
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('expanded', [False, True], ids=['random_dO', 'expanded_dO'])
+def test_flash_function_cuda_grads_match_cpu(cuda, dtype, tol, expanded):
+    """Autograd through FlashAttention on the card (the kernels) against the
+    same on the CPU (the twins): dO from a weighted sum, or expanded with
+    stride 0 from a plain .sum()."""
+    from stable_ts_tpu_torch.ops.flash_attn import flash_attention
+    n_head, dh = 4, 64
+    q, k, v = _flash_views(cuda, 2, 70, 150, n_head, dh, dtype)
+    w = _randn(cuda, 2, 70, n_head * dh)
+    grads = []
+    for dev in ('cuda', 'cpu'):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        before = _build.launches['flash_attn_bwd_dq']
+        out = flash_attention(*leaves, n_head, dh ** -0.5)
+        assert out.grad_fn is not None
+        loss = out.sum() if expanded else (out.float() * w.to(dev)).sum()
+        loss.backward()
+        if dev == 'cuda':
+            assert _build.launches['flash_attn_bwd_dq'] == before + 1
+        grads.append([x.grad.cpu() for x in leaves])
+    for name, got, ref in zip('qkv', *grads):
+        assert _rel(got, ref) <= tol, name

@@ -29,7 +29,7 @@ def _rel_err(got, ref) -> float:
 def pair():
     dims = tiny_test_dims()
     params = jm.init_params(jm.tiny_test_dims(), seed=3)
-    return dims, params, from_jax_params(params, dims)
+    return dims, params, from_jax_params(params, dims, device='cpu')
 
 
 @pytest.fixture(scope='module')
@@ -57,14 +57,14 @@ def test_from_jax_params_layout(pair):
 
 def test_init_params_shapes_and_statistics():
     dims = tiny_test_dims()
-    a = pm.init_params(dims, seed=1)
-    b = pm.init_params(dims, seed=1)
-    c = pm.init_params(dims, seed=2)
+    a = pm.init_params(dims, seed=1, device='cpu')
+    b = pm.init_params(dims, seed=1, device='cpu')
+    c = pm.init_params(dims, seed=2, device='cpu')
     for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), name
     assert not torch.equal(a.decoder.token_emb, c.decoder.token_emb)
     jax_params = jm.init_params(jm.tiny_test_dims(), seed=1)
-    converted = from_jax_params(jax_params, dims).state_dict()
+    converted = from_jax_params(jax_params, dims, device='cpu').state_dict()
     for name, p in a.state_dict().items():
         assert p.shape == converted[name].shape, name
     w = a.decoder.blocks[0].mlp.fc1.weight

@@ -166,7 +166,7 @@ def test_int4_cross_kv_matches_jax_unpacked():
     for proj in ('k', 'v'):
         ca[proj] = dict(ca[proj], w=jnp.asarray(
             rng.integers(-3, 4, ca[proj]['w'].shape).astype(np.float32)))
-    model = from_jax_params(params, tiny_test_dims())
+    model = from_jax_params(params, tiny_test_dims(), device='cpu')
     s = 300
     xa = rng.integers(-4, 5, (2, s, D)).astype(np.float32)
     xa[0, 11] = 0.0                     # a zero row: scale 1
@@ -212,7 +212,7 @@ def test_vocab_logits_routes_decode_shapes():
     import dataclasses
     dims = dataclasses.replace(tiny_test_dims(), n_vocab=4096, n_text_layer=1,
                                n_audio_layer=1)
-    dec = pm.init_params(dims, seed=2, dtype=torch.bfloat16).decoder
+    dec = pm.init_params(dims, seed=2, dtype=torch.bfloat16, device='cpu').decoder
     x = torch.randn((5, D), generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     with mock.patch.object(pm, 'vocab_proj', wraps=pm.vocab_proj) as spy:
         step = dec.vocab_logits(x)
@@ -232,7 +232,7 @@ def test_from_jax_dq_weights_exact():
     jax_dq = load_jax(seed=4, dq=True)
     port = from_jax(jax_dq, device='cpu')
     assert port.quantized
-    port_q = WhisperTorch(port.dims, from_jax(load_jax(seed=4)).params,
+    port_q = WhisperTorch(port.dims, from_jax(load_jax(seed=4), device='cpu').params,
                           device='cpu', dq=True)
     checked = 0
     for stack in ('encoder', 'decoder'):
@@ -275,7 +275,7 @@ def test_dequantize_params_matches_jax(dtype):
         QuantizedLinear, dequantize_params)
     jax_float = load_jax(seed=5)
     ref = dq_jax(qp_jax(jax_float.params, compute_dtype=getattr(jnp, dtype)))
-    port = from_jax(load_jax(seed=5, dq=True)).params
+    port = from_jax(load_jax(seed=5, dq=True), device='cpu').params
     dequantize_params(port, getattr(torch, dtype))
     for layer, blk in enumerate(port.decoder.blocks):
         for attn in ('attn', 'cross_attn', 'mlp'):

@@ -10,8 +10,8 @@ interpret mode (STABLE_TS_TPU_EPI); the port's greedy loop always takes
 the epilogue. Text and word-level SRT bytes must be equal, and every
 word's start and end within 0.021 s (one 20 ms frame plus rounding). The
 same holds for a ``dq`` model (int8 weights) on packed int4 cross K/V.
-A fresh interpreter that transcribes with the port loads neither jax nor
-any module of stable_ts_tpu."""
+A fresh interpreter that transcribes and takes a train step with the port
+loads neither jax, nor optax, nor any module of stable_ts_tpu."""
 import os
 import subprocess
 import sys
@@ -92,7 +92,7 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
         from stable_ts_tpu_torch import load_test_model
         audio = (np.random.default_rng(1).standard_normal(16000 * 8) * 0.1
                  ).astype(np.float32)
-        model = load_test_model(seed=0, alignment_heads={HEADS!r})
+        model = load_test_model(seed=0, device='cpu', alignment_heads={HEADS!r})
         result = model.transcribe(audio, language='en', temperature=0,
                                   verbose=None)
         srt = result.to_srt_vtt(word_level=True)
@@ -101,12 +101,23 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
                    dict(temperature=0, beam_size=2)):
             assert model.transcribe(audio, language='en', verbose=None,
                                     **kw).segments
-        dq = load_test_model(seed=0, alignment_heads={HEADS!r}, dq=True)
+        dq = load_test_model(seed=0, device='cpu', alignment_heads={HEADS!r},
+                             dq=True)
         assert dq.quantized
         for kw in (dict(temperature=0), dict(temperature=0, beam_size=2)):
             assert dq.transcribe(audio, language='en', verbose=None, kv_quant=4,
                                  **kw).segments
+        from stable_ts_tpu_torch import make_train_step
+        from stable_ts_tpu_torch.models.whisper.model import init_params
+        init_opt_state, train_step = make_train_step(model.dims)
+        params = init_params(model.dims, seed=0, device='cpu')
+        opt = init_opt_state(params)
+        rng = np.random.default_rng(2)
+        loss = train_step(params, opt, rng.standard_normal((1, 80, 3000)),
+                          rng.integers(0, model.dims.n_vocab, (1, 8)))
+        assert np.isfinite(float(loss))
         assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
+        assert 'optax' not in sys.modules
         old = sorted(m for m in sys.modules
                      if m == 'stable_ts_tpu' or m.startswith('stable_ts_tpu.'))
         assert not old, old
@@ -129,9 +140,28 @@ def test_cuda_without_a_gpu_raises():
         load_test_model(device='cuda')
     with pytest.raises(RuntimeError, match='CUDA'):
         init_params(tiny_test_dims(), device='cuda')
-    cpu_params = init_params(tiny_test_dims())
+    cpu_params = init_params(tiny_test_dims(), device='cpu')
     with pytest.raises(RuntimeError, match='CUDA'):
         WhisperTorch(tiny_test_dims(), cpu_params, device='cuda')
+
+
+def test_entry_points_default_to_the_gpu():
+    """load_test_model, from_jax, init_params and from_jax_params run on the
+    card unless asked for the CPU: with no GPU and no ``device``, each
+    raises."""
+    if torch.cuda.is_available():
+        pytest.skip('a GPU is present: the default device is legitimate here')
+    from stable_ts_tpu.loaders import load_test_model as load_jax
+    from stable_ts_tpu_torch.loaders import from_jax, load_test_model
+    from stable_ts_tpu_torch.models.whisper.convert import from_jax_params
+    from stable_ts_tpu_torch.models.whisper.dims import tiny_test_dims
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    jax_model = load_jax()
+    for call in (load_test_model, lambda: from_jax(jax_model),
+                 lambda: init_params(tiny_test_dims()),
+                 lambda: from_jax_params(jax_model.params, tiny_test_dims())):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            call()
 
 
 @pytest.mark.parametrize('options', [dict(kv_quant=4)], ids=['int4_kv'])
@@ -139,7 +169,7 @@ def test_unported_decoding_options_raise(options):
     """Packed int4 cross K/V, the last option that was not ported, now
     decodes; a cross K/V width with no grid still raises."""
     from stable_ts_tpu_torch.loaders import load_test_model
-    model = load_test_model(seed=0)
+    model = load_test_model(seed=0, device='cpu')
     mel = torch.zeros((80, 3000))
     (result,) = model.decode(mel, language='en', sample_len=4, **options)
     assert len(result.tokens) <= 4
@@ -157,7 +187,7 @@ def test_multilingual_without_language_detects_it():
     dims = dataclasses.replace(tiny_test_dims(), n_vocab=51865)
     ranks = {bytes([b]): b for b in range(256)}
     ranks.update({b'\x00' + i.to_bytes(3, 'big'): i for i in range(256, 50257)})
-    model = WhisperTorch(dims, init_params(dims), device='cpu', ranks=ranks)
+    model = WhisperTorch(dims, init_params(dims, device='cpu'), device='cpu', ranks=ranks)
     mel = torch.zeros((80, 3000))
     (code,), probs = model.detect_language(mel)
     assert code in probs[0] and probs[0][code] == max(probs[0].values())
