@@ -18,7 +18,8 @@ a synthetic rank table the size of the multilingual vocabulary) through
   optax.adamw(1e-5)) at batch 2 windows and 64 tokens, the second with a
   label mask; each step must launch the flash forward and both backward
   kernels 64 times (32 encoder + 32 decoder cross layers) and leave every
-  parameter a finite, non-zero gradient.
+  parameter a finite, non-zero gradient; then a fourth step and one
+  window's encoder forward under torch.profiler (device busy share).
 
 The launch counts are reset before each path (each train step) and read
 after it; the script fails unless each path launched the kernels it runs,
@@ -30,7 +31,9 @@ steps on the CPU (twins) and on the card (kernels), which must agree.
 The second-to-last line of stdout is a JSON object with each kernel's
 launches on the four paths, its error against its twin, its time, its
 twin's, the bound on its time (H100 SXM data sheet) and, where one PyTorch
-call computes the same function, that call's time; the last line is
+call computes the same function, that call's time (the flash entries and
+their library calls by device time alone, from torch.profiler; the others
+by CUDA events around the calls); the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the package
 beside it, the script fails and prints no result.
 """
@@ -71,6 +74,53 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms: the durations of the CUDA kernels
+    (and device memsets) it ran, summed by torch.profiler over ``iters``
+    calls after warm-up. Unlike cuda_ms, the host's time between launches
+    (the wrapper's checks, an autograd graph walk) does not count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    if us <= 0:
+        raise AssertionError('torch.profiler recorded no device time')
+    return us / iters / 1e3
+
+
+def profiled(fn):
+    """fn() once under torch.profiler: (its result, the host-clock wall in s
+    with the profiler on, the device busy time in s (the CUDA kernels'
+    durations summed), the flash kernels' share of that in s, and the five
+    kernels with the most device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # CUDA events but the device-side ranges of record_function annotations
+    # (the optimizer step's), which span kernels counted on their own
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    flash = sum(e.self_device_time_total for e in kernels if 'flash_' in e.key) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return out, wall, busy, flash, [(e.key[:48], e.count, round(e.self_device_time_total / 1e3, 3))
+                                    for e in top]
 
 
 def rel_err(got, ref) -> tuple:
@@ -135,18 +185,22 @@ def kernel_checks(torch, results: dict) -> None:
         ref = flash_attn.flash_attention_ref(q, k, v, h, scale)
         torch.cuda.synchronize()
         err = check('flash_attn', got, ref, tol, what)
-        ms = cuda_ms(lambda: flash_attn.flash_attention(q, k, v, h, scale))
-        plain = cuda_ms(lambda: flash_attn.flash_attention_ref(q, k, v, h, scale))
-        # the library call: PyTorch's fused attention on the same tensors
-        # viewed as (B, heads, T, d_head)
         qh, kh, vh = (a.view(1, -1, h, d // h).transpose(1, 2) for a in (q, k, v))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        calls = (lambda: flash_attn.flash_attention(q, k, v, h, scale),
+                 lambda: flash_attn.flash_attention_ref(q, k, v, h, scale),
+                 # the library call: PyTorch's fused attention on the same
+                 # tensors viewed as (B, heads, T, d_head)
+                 lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        # device time alone (the profiler's kernel durations), and events
+        # around the calls (with the host's time, where the host is slower)
+        ms, plain, lib = (device_ms(fn) for fn in calls)
+        ev, ev_plain, ev_lib = (cuda_ms(fn) for fn in calls)
         # q, k and v read once, the output (q's shape) written once
         numbers = entry(err, ms, plain, nbytes(q, k, v, q), 4 * t * 1500 * d,
                         'bf16' if dtype == torch.bfloat16 else 'f32', lib)
-        log(f'[kernel] flash_attn {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms, '
-            f'scaled_dot_product_attention {lib:.4f} ms, bound '
-            f'{numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
+        log(f'[kernel] flash_attn {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms, '
+            f'scaled_dot_product_attention {lib:.4f} ms; events {ev:.4f}, {ev_plain:.4f}, '
+            f'{ev_lib:.4f} ms; bound {numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
         flash.append(numbers)
     results['flash_attn'] = flash[0]
 
@@ -442,9 +496,10 @@ def flash_bwd_checks(torch, results: dict, randn) -> None:
     kernels, fed the kernel's own output, against the backward twin, within
     2e-2 (bf16: the gradients round to bf16, 2^-8 relative) or 1e-4 (f32:
     sums in another order) of each tensor's max; and a rerun equal bit for
-    bit (no atomics). Times: each kernel, its twin (the twin computing only
-    that kernel's outputs), the bound, and the backward alone of PyTorch's
-    fused attention on the same (B, heads, T, d_head) views."""
+    bit (no atomics). Times, each by its device time alone (the profiler's
+    kernel durations) and by events: each kernel, its twin (the twin
+    computing only that kernel's outputs), the bound, and the backward alone
+    of PyTorch's fused attention on the same (B, heads, T, d_head) views."""
     import torch.nn.functional as F
     from stable_ts_tpu_torch.ops import flash_attn as fa
     d, h = 1280, 20
@@ -477,22 +532,23 @@ def flash_bwd_checks(torch, results: dict, randn) -> None:
         log(f'[kernel] flash backward {what}: rerun bit-identical: {same}')
         if not same:
             raise AssertionError(f'flash backward {what}: a rerun differs')
-        ms_kv = cuda_ms(lambda: fa._bwd_dkv_cuda(*args))
-        ms_q = cuda_ms(lambda: fa._bwd_dq_cuda(*args))
-        plain_kv = cuda_ms(lambda: fa.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, h, scale, needs=(False, True, True)), iters=5)
-        plain_q = cuda_ms(lambda: fa.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, h, scale, needs=(True, False, False)), iters=5)
         # the library call: the backward alone of PyTorch's fused attention
         # on the same tensors viewed as (B, heads, T, d_head); graph built once
         qh, kh, vh = (x.view(b, -1, h, dh).transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
         doh = do.view(b, t, h, dh).transpose(1, 2)
-        lib_kv = cuda_ms(lambda: torch.autograd.grad(out, (kh, vh), doh, retain_graph=True))
-        lib_q = cuda_ms(lambda: torch.autograd.grad(out, (qh,), doh, retain_graph=True))
-        lib_all = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                      retain_graph=True))
+        calls = (lambda: fa._bwd_dkv_cuda(*args), lambda: fa._bwd_dq_cuda(*args),
+                 lambda: torch.autograd.grad(out, (kh, vh), doh, retain_graph=True),
+                 lambda: torch.autograd.grad(out, (qh,), doh, retain_graph=True),
+                 lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))
+        # device time alone (the profiler's kernel durations) and events
+        ms_kv, ms_q, lib_kv, lib_q, lib_all = (device_ms(fn) for fn in calls)
+        ev_kv, ev_q, _, _, ev_all = (cuda_ms(fn) for fn in calls)
+        plain_kv = device_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, h, scale, needs=(False, True, True)), iters=5)
+        plain_q = device_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, h, scale, needs=(True, False, False)), iters=5)
         del out
         kind = 'bf16' if dtype == torch.bfloat16 else 'f32'
         # each input read once (q, k, v, dO, lse, D), each output written once
@@ -501,12 +557,13 @@ def flash_bwd_checks(torch, results: dict, randn) -> None:
         n_kv = entry(err_kv, ms_kv, plain_kv, inputs + nbytes(dk, dv), 8 * work, kind, lib_kv)
         n_q = entry(err_q, ms_q, plain_q, inputs + nbytes(dq), 6 * work, kind, lib_q)
         whole = bound(inputs + nbytes(dq, dk, dv), 10 * work, kind)
-        log(f'[kernel] flash backward {what}: dkv {ms_kv:.4f} ms (twin {plain_kv:.4f}, '
-            f'SDPA backward dK,dV {lib_kv:.4f}, bound {n_kv["bound_ms"]:.4f} '
+        log(f'[kernel] flash backward {what}, device times: dkv {ms_kv:.4f} ms (twin '
+            f'{plain_kv:.4f}, SDPA backward dK,dV {lib_kv:.4f}, bound {n_kv["bound_ms"]:.4f} '
             f'{n_kv["bound_by"]}); dq {ms_q:.4f} ms (twin {plain_q:.4f}, SDPA backward '
             f'dQ {lib_q:.4f}, bound {n_q["bound_ms"]:.4f} {n_q["bound_by"]}); both '
             f'{ms_kv + ms_q:.4f} ms against SDPA backward dQ,dK,dV {lib_all:.4f} ms '
-            f'(bound {whole["bound_ms"]:.4f} {whole["bound_by"]})')
+            f'(bound {whole["bound_ms"]:.4f} {whole["bound_by"]}); events: dkv {ev_kv:.4f}, '
+            f'dq {ev_q:.4f}, SDPA backward dQ,dK,dV {ev_all:.4f} ms')
         if t == 1500:
             results['flash_attn_bwd_dkv'] = n_kv
             results['flash_attn_bwd_dq'] = n_q
@@ -556,12 +613,13 @@ def train_path(torch, dims, audio) -> dict:
     tokens, the second step with the first 3 positions masked. Each step
     must launch exactly 64 flash forwards, 64 dkv and 64 dq backward
     kernels; after step 1 every parameter must hold a finite, non-zero
-    gradient; every loss must be finite. Returns the launches summed over
-    the steps."""
+    gradient; every loss must be finite. A fourth step (no mask) and the
+    encoder forward of one window run under torch.profiler for the device's
+    busy share. Returns the launches summed over the steps."""
     import numpy as np
     from stable_ts_tpu_torch import _build
     from stable_ts_tpu_torch.models.whisper import train
-    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.models.whisper.model import encoder_apply, init_params
     from stable_ts_tpu_torch.ops.mel import log_mel_spectrogram
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -625,6 +683,25 @@ def train_path(torch, dims, audio) -> dict:
                     raise AssertionError(f'missing, non-finite or zero gradients: {bad[:10]}')
             for name, n in step_counts.items():
                 counts[name] = counts.get(name, 0) + n
+        # where a step's time goes: a fourth step, and the encoder forward of
+        # one window, under the profiler (device busy share, flash's part)
+        _build.reset_launch_counts()
+        loss, wall, busy, flash, top = profiled(
+            lambda: train_step(model, opt, mel, tokens, None).item())
+        step_counts = _build.launch_counts()
+        if not np.isfinite(loss) or any(step_counts.get(name, 0) != 64 for name in (
+                'flash_attn', 'flash_attn_bwd_dkv', 'flash_attn_bwd_dq')):
+            raise AssertionError(f'profiled train step: loss {loss}, launches {step_counts}')
+        for name, n in step_counts.items():
+            counts[name] = counts.get(name, 0) + n
+        log(f'[train] step 4 under torch.profiler: loss {loss:.4f}, wall {wall:.3f} s '
+            f'(profiler on), device busy {busy:.3f} s ({busy / wall:.1%}), of it the flash '
+            f'kernels {flash:.4f} s; top kernels (name, calls, ms) {top}')
+        with torch.no_grad():
+            _, wall, busy, flash, top = profiled(lambda: encoder_apply(model.encoder, mel[:1]))
+        log(f'[train] encoder forward of one window (bf16, no grad) under torch.profiler: '
+            f'wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), '
+            f'of it flash {flash * 1e3:.3f} ms; top kernels {top}')
     finally:
         train.cross_entropy_loss = loss_fn
     log(f'[train] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
@@ -699,6 +776,9 @@ def main() -> int:
     lib_path = _build.build()
     _build.lib()
     log(f'[build] {lib_path.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s')
+    for name, r in _build.kernel_resources(lib_path).items():
+        if 'flash' in name:
+            log(f'[build] ptxas {name}: {r}')
 
     results = {}
     kernel_checks(torch, results)

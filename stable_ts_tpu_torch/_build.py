@@ -13,6 +13,10 @@ Each C entry point launches on the caller's stream, allocates nothing, and
 returns ``cudaGetLastError()`` so a refused launch (too many threads, too
 much shared memory) raises here instead of passing silently.
 
+ptxas reports each kernel's registers, spills and shared memory (``-Xptxas
+-v``); the build keeps the report beside the library as ``ptxas.log``
+(:func:`kernel_resources` reads it).
+
 ``launches`` counts kernel launches per wrapper: each wrapper in ``ops/``
 adds one where it launches its kernel, and nowhere else, so a run can show
 that the main path went through the kernels.
@@ -21,6 +25,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +35,10 @@ _PKG_DIR = Path(__file__).resolve().parent
 _SRC_DIR = _PKG_DIR / 'csrc'
 _BUILD_ROOT = _PKG_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-Xcompiler', '-fPIC', '-lineinfo')
+              '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v')
+
+# ptxas's report (registers, spills, shared memory per kernel), beside the library
+PTXAS_LOG = 'ptxas.log'
 
 # name of each kernel wrapper -> launches since the last reset
 launches = collections.Counter()
@@ -143,13 +151,15 @@ def build() -> Path:
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                  text=True)
                 for cu, obj in zip(cus, objs)]
-    errors = []
+    errors, logs = [], []
     for cu, proc in zip(cus, compiles):
         _, err = proc.communicate()
+        logs.append(f'== {cu.name}\n{err}')
         if proc.returncode != 0:
             errors.append(f'{cu.name} ({proc.returncode}):\n{err}')
     if errors:
         raise RuntimeError('nvcc failed: ' + '\n'.join(errors))
+    (out_dir / PTXAS_LOG).write_text('\n'.join(logs))
     tmp = out_dir / f'libkernels.{tag}.so'
     link = subprocess.run([nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
                            *map(str, objs)], capture_output=True, text=True)
@@ -159,6 +169,25 @@ def build() -> Path:
     for obj in objs:
         obj.unlink()
     return lib_path
+
+
+def kernel_resources(lib_path: Path) -> dict:
+    """{mangled kernel name: {'registers', 'spill_stores', 'spill_loads',
+    'smem'}} from the ptxas report of the build at ``lib_path`` (static
+    shared memory only; the flash kernels take theirs dynamically)."""
+    found, name = {}, None
+    for line in (lib_path.parent / PTXAS_LOG).read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            found.setdefault(name, {})
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m and name:
+            found[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers(?:.*?(\d+) bytes smem)?', line)
+        if m and name:
+            found[name].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return found
 
 
 def lib() -> ctypes.CDLL:

@@ -12,18 +12,45 @@
 // row) (flash_attn.cu writes it) and D_i = sum_e dO_ie O_ie (the caller
 // computes it, as the TPU's wrapper does outside its kernels), with
 // P = exp(scale q k^T - lse):
-//   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D),
-//   dQ = scale dS K,  dK = scale dS^T Q.
-// Both entries recompute P from lse, as the TPU's two kernels do, so the
-// (T, S) matrices never reach device memory and nothing needs atomics:
-// each output row is summed by one thread in a fixed order, and a rerun
-// gives the same bits. Keys j >= S and query rows i >= T are masked here
-// (the TPU padded to 128 and masked with segment ids).
+//   dV = P^T dO,  dP = dO V^T,  dS = scale P * (dP - D),
+//   dQ = dS K,  dK = dS^T Q
+// (the scale inside dS, as the Pallas kernels compute it). Both entries
+// recompute P from lse, as the TPU's two kernels do, so the (T, S) matrices
+// never reach device memory and nothing needs atomics: each output row is
+// summed by one block in a fixed order, and a rerun gives the same bits.
+// Keys j >= S and query rows i >= T are masked here (the TPU padded to 128
+// and masked with segment ids).
 //
-// What bounds it on the card: operations (8 T S d for dkv, 6 T S d for
-// dq; at Whisper's 1500 x 1500 x 64 per head that is ~1000 FLOP per byte
-// read). This first version runs on the f32 CUDA cores, as the forward
-// does (wgmma comes with the redesign):
+// What bounds it on the card: operations at the encoder shape (8 T S d for
+// dkv, 6 T S d for dq; at Whisper's 1500 x 1500 x 64 per head ~1000 FLOP
+// per byte read), bytes at the cross shapes (T = 63 tokens a row against
+// 1500 frames in the train step).
+//
+// bf16 (the port's large-v3 train step): tensor cores (hopper.cuh), as
+// the forward (flash_attn.cu); every product on wgmma, bf16 in, f32 sums.
+//   - dkv: one block per (64-key tile, head, batch row); its K and V tiles
+//     arrive once by TMA, Q and dO stream through a 2-stage ring by TMA (3-D
+//     tensor maps: rows past T arrive as zeros per batch row), the tile's
+//     lse and D through the same stage, written by the producer warp's lanes
+//     (lse = +inf past T, so P = 0 there). Per query tile: S^T = K Q^T and
+//     dP^T = V dO^T (m64n64k16, both operands from shared memory); P^T and
+//     dS^T = scale P^T (dP^T - D) in f32 on the accumulator layout, lse and
+//     D per column; then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+//     rounded to bf16 where the Pallas kernel rounds them
+//     (flash_attention.py:900, :918) and passed in registers as A fragments,
+//     dO and Q MN-major B operands (transpose-B). Blocks: 24 x 20 heads x 2
+//     = 960 at both train-step shapes.
+//   - dq: one block per (64-query tile, head, batch row); its Q and dO tiles
+//     once, K and V streamed. Per key tile: S = Q K^T, dP = dO V^T; P and
+//     dS in f32 (keys >= S masked to P = 0); dQ += dS K with dS rounded to
+//     bf16 (flash_attention.py:1258), K MN-major. Blocks: encoder 960, cross
+//     T = 63 at B = 2 40 (under a third of the 132 SMs).
+//   - Shared memory per block at d_head 64: dkv 32 KB own + 2 stages of
+//     (16 KB + 512 B) = 49 KB, dq 16 KB own + 2 x 16 KB = 48 KB, plus
+//     barriers and 1 KB of alignment slack: both opt in to more than 48 KB
+//     (allow_dynamic_smem).
+// f32 (the tiny test model, and the f32 kernel checks): the CUDA cores, as
+// the f32 forward:
 //   - dkv: one block per (64-key tile, head, batch row), one thread per key
 //     row. Its dK and dV sums stay in registers (2 d_head floats). Its own
 //     k and v rows live in shared memory, each padded by 4 floats so that
@@ -41,6 +68,7 @@
 // to more than 48 KB (allow_dynamic_smem). nvcc -Xptxas -v for sm_90a:
 // dkv 198 registers, dq 168 at d_head 64 (160 and 128 at 32), no spills.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -292,6 +320,305 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- bf16: wgmma tiles fed by TMA ------------------------------------------------
+
+constexpr int BW_STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared-memory layouts (byte offsets from a 1024-aligned base). dkv: the
+// block's K and V tiles, then per stage a Q and a dO tile and the tile's
+// lse (times log2 e) and D; dq: the block's Q and dO tiles, then per stage a
+// K and a V tile.
+template <int DH>
+struct DkvSmem {
+  static constexpr int TILE = hop::ROWS * DH * 2;
+  static constexpr int K = 0, V = TILE;
+  static constexpr int Q = 2 * TILE;                     // [BW_STAGES] tiles
+  static constexpr int DO = Q + BW_STAGES * TILE;        // [BW_STAGES] tiles
+  static constexpr int LSE = DO + BW_STAGES * TILE;      // [BW_STAGES][ROWS] f32
+  static constexpr int DELTA = LSE + BW_STAGES * hop::ROWS * 4;
+  static constexpr int BAR = DELTA + BW_STAGES * hop::ROWS * 4;  // own, full[], empty[]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * BW_STAGES) + 1024;
+};
+
+template <int DH>
+struct DqSmem {
+  static constexpr int TILE = hop::ROWS * DH * 2;
+  static constexpr int Q = 0, DO = TILE;
+  static constexpr int K = 2 * TILE;                     // [BW_STAGES] tiles
+  static constexpr int V = K + BW_STAGES * TILE;         // [BW_STAGES] tiles
+  static constexpr int BAR = V + BW_STAGES * TILE;       // own, full[], empty[]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * BW_STAGES) + 1024;
+};
+
+// the block's 64 rows of ``out`` (B, n, n_head * DH contiguous), rows >= n
+// skipped, from an m64n{DH} accumulator
+template <int DH>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[DH / 2],
+                                           int b, int h, int n_head, int row0, int n) {
+  const int lane = threadIdx.x % 32;
+  const int r = (threadIdx.x / 32) * 16 + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r + 8 * i;
+    if (row >= n) continue;
+    __nv_bfloat16* o = out + (static_cast<long long>(b) * n + row) * n_head * DH + h * DH + c;
+#pragma unroll
+    for (int jj = 0; jj < DH / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * jj) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+  }
+}
+
+// dK and dV of the block's 64 keys: walk every 64-query tile,
+//   S^T = K Q^T, dP^T = V dO^T   (wgmma m64n64k16, both from shared memory)
+//   P^T = exp(scale S^T - lse), dS^T = scale P^T (dP^T - D)   (f32)
+//   dV += bf16(P^T) dO, dK += bf16(dS^T) Q   (A in registers, B MN-major)
+template <int DH>
+__global__ void __launch_bounds__(hop::THREADS)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int t_len, int s_len, float scale) {
+  using L = DkvSmem<DH>;
+  constexpr int RB = DH * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hop::smem_u32(smem_raw) + 1023) & ~1023u;
+  // the generic address of the same base, for the lse and D rows
+  uint8_t* const gbase = smem_raw + (base - hop::smem_u32(smem_raw));
+  const uint32_t bar_own = base + L::BAR, full = bar_own + 8, empty = full + 8 * BW_STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, n_head = gridDim.y, key0 = blockIdx.x * hop::ROWS;
+  const int n_tiles = (t_len + hop::ROWS - 1) / hop::ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long bh = static_cast<long long>(b) * n_head + h;
+  // full: the producer's lane 0 (with the bytes), then all 32 lanes (lse, D)
+  hop::init_ring<BW_STAGES>(bar_own, 33);
+
+  // producer: own K, V once; Q and dO by TMA, lse and D by the lanes
+  if (warp == hop::CONSUMERS / 32) {
+    if (lane == 0) {
+      hop::mbar_arrive_expect(bar_own, 2 * L::TILE);
+      hop::tma_load_3d(base + L::K, &kmap, bar_own, h * DH, key0, b);
+      hop::tma_load_3d(base + L::V, &vmap, bar_own, h * DH, key0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % BW_STAGES;
+      hop::mbar_wait(empty + 8 * st, ((i / BW_STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        hop::mbar_arrive_expect(full + 8 * st, 2 * L::TILE);
+        hop::tma_load_3d(base + L::Q + st * L::TILE, &qmap, full + 8 * st, h * DH,
+                         i * hop::ROWS, b);
+        hop::tma_load_3d(base + L::DO + st * L::TILE, &omap, full + 8 * st, h * DH,
+                         i * hop::ROWS, b);
+      }
+      float* ls = reinterpret_cast<float*>(gbase + L::LSE) + st * hop::ROWS;
+      float* ds = reinterpret_cast<float*>(gbase + L::DELTA) + st * hop::ROWS;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = i * hop::ROWS + lane + 32 * e;
+        const bool live = row < t_len;
+        // rows past T: P = exp2(s - inf) = 0, so dS = 0 too
+        ls[lane + 32 * e] = live ? lse[bh * t_len + row] * LOG2E : INFINITY;
+        ds[lane + 32 * e] = live ? delta[bh * t_len + row] : 0.f;
+      }
+      hop::mbar_arrive(full + 8 * st);
+    }
+    return;
+  }
+
+  const int c = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+  float dka[DH / 2], dva[DH / 2], sa[32], pa[32];
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) dka[e] = dva[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sa[e] = pa[e] = 0.f;
+
+  hop::mbar_wait(bar_own, 0);
+#pragma unroll 1
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % BW_STAGES;
+    const uint32_t qt = base + L::Q + st * L::TILE, ot = base + L::DO + st * L::TILE;
+    hop::mbar_wait(full + 8 * st, (i / BW_STAGES) & 1);
+
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hop::wgmma_ss_n64(sa, hop::desc<RB>(base + L::K + 32 * kk), hop::desc<RB>(qt + 32 * kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hop::wgmma_ss_n64(pa, hop::desc<RB>(base + L::V + 32 * kk), hop::desc<RB>(ot + 32 * kk), kk);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(sa);
+    hop::fence_regs(pa);
+
+    // columns are queries: their lse and D from this stage's rows
+    const float* ls = reinterpret_cast<const float*>(gbase + L::LSE) + st * hop::ROWS + c;
+    const float* ds = reinterpret_cast<const float*>(gbase + L::DELTA) + st * hop::ROWS + c;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 lj = *reinterpret_cast<const float2*>(ls + 8 * jj);
+      const float2 dj = *reinterpret_cast<const float2*>(ds + 8 * jj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sa[4 * jj + e], sl2, -(e % 2 ? lj.y : lj.x)));
+        sa[4 * jj + e] = p;                                              // P^T
+        pa[4 * jj + e] = p * (pa[4 * jj + e] - (e % 2 ? dj.y : dj.x)) * scale;  // dS^T
+      }
+    }
+    uint32_t pf[4][4], sf[4][4];
+    hop::to_frags(sa, pf);
+    hop::to_frags(pa, sf);
+
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hop::wgmma_rs<DH>(dva, pf[kk], hop::desc<RB>(ot + 16 * RB * kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hop::wgmma_rs<DH>(dka, sf[kk], hop::desc<RB>(qt + 16 * RB * kk));
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(dva);
+    hop::fence_regs(dka);
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(empty + 8 * st);
+  }
+  store_rows<DH>(dk, dka, b, h, n_head, key0, s_len);
+  store_rows<DH>(dv, dva, b, h, n_head, key0, s_len);
+}
+
+// dQ of the block's 64 queries: walk every 64-key tile,
+//   S = Q K^T, dP = dO V^T   (wgmma m64n64k16, both from shared memory)
+//   P = exp(scale S - lse) (0 at keys >= S), dS = scale P (dP - D)   (f32)
+//   dQ += bf16(dS) K   (A in registers, B MN-major)
+template <int DH>
+__global__ void __launch_bounds__(hop::THREADS)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap omap, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int t_len,
+                   int s_len, float scale) {
+  using L = DqSmem<DH>;
+  constexpr int RB = DH * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hop::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_own = base + L::BAR, full = bar_own + 8, empty = full + 8 * BW_STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, n_head = gridDim.y, row0 = blockIdx.x * hop::ROWS;
+  const int n_tiles = (s_len + hop::ROWS - 1) / hop::ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long bh = static_cast<long long>(b) * n_head + h;
+  hop::init_ring<BW_STAGES>(bar_own, 1);
+
+  if (warp == hop::CONSUMERS / 32) {  // producer: own Q, dO once; K, V by TMA
+    if (lane == 0) {
+      hop::mbar_arrive_expect(bar_own, 2 * L::TILE);
+      hop::tma_load_3d(base + L::Q, &qmap, bar_own, h * DH, row0, b);
+      hop::tma_load_3d(base + L::DO, &omap, bar_own, h * DH, row0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % BW_STAGES;
+        hop::mbar_wait(empty + 8 * st, ((j / BW_STAGES) & 1) ^ 1);
+        hop::mbar_arrive_expect(full + 8 * st, 2 * L::TILE);
+        hop::tma_load_3d(base + L::K + st * L::TILE, &kmap, full + 8 * st, h * DH,
+                         j * hop::ROWS, b);
+        hop::tma_load_3d(base + L::V + st * L::TILE, &vmap, full + 8 * st, h * DH,
+                         j * hop::ROWS, b);
+      }
+    }
+    return;
+  }
+
+  const int r = warp * 16 + lane / 4, c = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];  // rows r and r + 8; rows past T are never stored
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r + 8 * i;
+    const bool live = row < t_len;
+    lse2[i] = live ? lse[bh * t_len + row] * LOG2E : 0.f;
+    dl[i] = live ? delta[bh * t_len + row] : 0.f;
+  }
+  float dqa[DH / 2], sa[32], pa[32];
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) dqa[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sa[e] = pa[e] = 0.f;
+
+  hop::mbar_wait(bar_own, 0);
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % BW_STAGES;
+    const uint32_t kt = base + L::K + st * L::TILE, vt = base + L::V + st * L::TILE;
+    hop::mbar_wait(full + 8 * st, (j / BW_STAGES) & 1);
+
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hop::wgmma_ss_n64(sa, hop::desc<RB>(base + L::Q + 32 * kk), hop::desc<RB>(kt + 32 * kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hop::wgmma_ss_n64(pa, hop::desc<RB>(base + L::DO + 32 * kk), hop::desc<RB>(vt + 32 * kk), kk);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(sa);
+    hop::fence_regs(pa);
+
+    const bool ragged = (j + 1) * hop::ROWS > s_len;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sa[4 * jj + e], sl2, -lse2[e / 2]));
+        if (ragged && j * hop::ROWS + 8 * jj + c + e % 2 >= s_len) p = 0.f;  // zero-filled keys
+        pa[4 * jj + e] = p * (pa[4 * jj + e] - dl[e / 2]) * scale;  // dS
+      }
+    uint32_t sf[4][4];
+    hop::to_frags(pa, sf);
+
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hop::wgmma_rs<DH>(dqa, sf[kk], hop::desc<RB>(kt + 16 * RB * kk));
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(dqa);
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(empty + 8 * st);
+  }
+  store_rows<DH>(dq, dqa, b, h, n_head, row0, t_len);
+}
+
+template <int DH>
+int launch_wgmma(const BwdArgs& a, bool want_dq) {
+  CUtensorMap qm, km, vm, om;
+  const int width = a.n_head * DH;
+  const long long d = width;  // dO: contiguous (B, T, d)
+  int err = hop::rows_map(&qm, a.q, a.batch, a.t_len, width, DH, a.q_st, a.q_sb);
+  if (err == 0) err = hop::rows_map(&km, a.k, a.batch, a.s_len, width, DH, a.k_st, a.k_sb);
+  if (err == 0) err = hop::rows_map(&vm, a.v, a.batch, a.s_len, width, DH, a.v_st, a.v_sb);
+  if (err == 0) err = hop::rows_map(&om, a.dout, a.batch, a.t_len, width, DH, d, a.t_len * d);
+  if (err != 0) return err;
+  if (want_dq) {
+    constexpr int smem = DqSmem<DH>::BYTES;
+    const cudaError_t e = allow_dynamic_smem(flash_bwd_dq_wgmma<DH>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.t_len + hop::ROWS - 1) / hop::ROWS, a.n_head, a.batch);
+    flash_bwd_dq_wgmma<DH><<<grid, hop::THREADS, smem, a.stream>>>(
+        qm, km, vm, om, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.t_len, a.s_len,
+        a.scale);
+  } else {
+    constexpr int smem = DkvSmem<DH>::BYTES;
+    const cudaError_t e = allow_dynamic_smem(flash_bwd_dkv_wgmma<DH>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.s_len + hop::ROWS - 1) / hop::ROWS, a.n_head, a.batch);
+    flash_bwd_dkv_wgmma<DH><<<grid, hop::THREADS, smem, a.stream>>>(
+        qm, km, vm, om, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+        static_cast<__nv_bfloat16*>(a.dv), a.t_len, a.s_len, a.scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DH>
 int launch(const BwdArgs& a, bool want_dq) {
   if (want_dq) {
@@ -324,8 +651,8 @@ int dispatch(const BwdArgs& a, int dtype, int d_head, bool want_dq) {
   switch (dtype * 1000 + d_head) {
     case DT_F32 * 1000 + 32: return launch<float, 32>(a, want_dq);
     case DT_F32 * 1000 + 64: return launch<float, 64>(a, want_dq);
-    case DT_BF16 * 1000 + 32: return launch<__nv_bfloat16, 32>(a, want_dq);
-    case DT_BF16 * 1000 + 64: return launch<__nv_bfloat16, 64>(a, want_dq);
+    case DT_BF16 * 1000 + 32: return launch_wgmma<32>(a, want_dq);
+    case DT_BF16 * 1000 + 64: return launch_wgmma<64>(a, want_dq);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

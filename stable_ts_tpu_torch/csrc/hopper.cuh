@@ -1,0 +1,249 @@
+// Hopper building blocks of the bf16 flash kernels (flash_attn.cu,
+// flash_attn_bwd.cu): TMA tile loads completing on mbarriers, wgmma on
+// 128-byte (d_head 64) or 64-byte (d_head 32) swizzled shared-memory tiles,
+// and the host's tensor maps.
+//
+// One tile layout serves every product. A TMA box of 64 rows x d_head bf16
+// lands row r at r * ROW_BYTES (ROW_BYTES = 2 d_head), its 16-byte chunks
+// XORed with r % 8: the canonical swizzled layout of both a K-major operand
+// (rows are M or N, the row's d_head values are K) and an MN-major one (rows
+// are K, the row's values are N). The descriptor is the same in both uses:
+// 8-row groups 8 ROW_BYTES apart (SBO); the leading offset (LBO) is unused
+// because one swizzle atom spans the operand's whole row. A K step of 16
+// moves the start 32 bytes along a K-major row, or 16 rows down an MN-major
+// tile. Tiles start on 1024-byte boundaries, so the swizzle phase that TMA
+// wrote is the one wgmma reads.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hop {
+
+constexpr int ROWS = 64;                 // rows of every tile (one warpgroup's M)
+constexpr int CONSUMERS = 128;           // one consumer warpgroup
+constexpr int THREADS = CONSUMERS + 32;  // plus one producer warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers ---------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one arrival that also expects ``bytes`` of TMA traffic in this phase
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The barriers at ``bar``: the own tiles' (one arrival), then the ring's
+// STAGES full barriers (``full_count`` arrivals) and STAGES empty ones (lane 0
+// of each consumer warp), 8 bytes each. Thread 0 initialises, all wait.
+template <int STAGES>
+__device__ __forceinline__ void init_ring(uint32_t bar, int full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bar + 8 + 8 * st, full_count);
+      mbar_init(bar + 8 + 8 * STAGES + 8 * st, CONSUMERS / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// -- TMA ---------------------------------------------------------------------------
+
+// the box at (c0, c1, c2) of ``map`` into shared memory at dst; its bytes
+// complete on ``bar``
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// -- wgmma -------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Tie accumulator registers to this point of the program: reads after a
+// wgmma_wait_all stay after it, writes before a wgmma stay before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Matrix descriptor of a swizzled tile at shared address ``addr`` whose rows
+// are ROW_BYTES long (128: 128-byte swizzle; 64: 64-byte swizzle).
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "rows of 64 or 32 bf16");
+  constexpr uint64_t layout = ROW_BYTES == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (static_cast<uint64_t>(8 * ROW_BYTES >> 4) << 32) | (layout << 62);
+}
+
+// two floats rounded to bf16 (nearest even) in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The accumulator of an m64nN tile as the A fragments of the m64k16 products
+// that follow (the FlashAttention-3 arrangement): a thread holds rows r and
+// r + 8 (r = 16 warp + lane / 4) at columns 8 j + 2 (lane % 4) + {0, 1} in
+// d[4 j + 2 i + {0, 1}] (i = 0 for r, 1 for r + 8); the fragment of K step
+// kk is those rows at columns 16 kk + 2 (lane % 4) + {0, 1} and + 8.
+__device__ __forceinline__ void to_frags(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+  }
+}
+
+// d (m64n64, f32) {+}= A B: A from a descriptor (64 x 16, K-major), B from
+// a descriptor (16 x 64 as 64 rows of 16 K-values, K-major); accumulate when
+// acc != 0, else overwrite.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (m64n64, f32) += A B: A from registers (the m64k16 bf16 fragment),
+// B from a descriptor over 16 rows of 64 N-values (MN-major: transpose-B).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n32, f32) += A B: A from registers (the m64k16 bf16 fragment),
+// B from a descriptor over 16 rows of 32 N-values (MN-major: transpose-B).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n{d_head}) += A B with A in registers and B an MN-major tile
+template <int DH>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DH == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n32(d, a, db);
+  }
+}
+
+// -- host: tensor maps -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver API: take it through the runtime so the
+// library links against cudart alone
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over the bf16 (batch, rows, width) operand at ``base`` (row and
+// batch strides in elements) whose box is ROWS rows of the dh columns of one
+// head, swizzled as the wgmma descriptors expect. Rows past ``rows`` read as
+// zeros, per batch row. Returns a cudaError_t.
+inline int rows_map(CUtensorMap* map, const void* base, int batch, int rows, int width, int dh,
+                    long long row_stride, long long batch_stride) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  constexpr long long E = sizeof(__nv_bfloat16);
+  // a stride of a dimension of extent 1 is never followed: give it a legal value
+  const long long row_b = rows > 1 ? row_stride * E : (width * E + 15) / 16 * 16;
+  const long long batch_b = batch > 1 ? batch_stride * E : row_b * rows;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_b), static_cast<cuuint64_t>(batch_b)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh), ROWS, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace hop

@@ -37,14 +37,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         n_head: int, scale: float, return_lse: bool = False):
     """Plain twin: softmax(q k^T * scale) v per head, scores in f32.
     q: (B, T, d); k/v: (B, S, d) -> (B, T, d) in q's dtype; with
-    ``return_lse`` also the scores' logsumexp (B, H, T) in f32."""
+    ``return_lse`` also the scores' logsumexp (B, H, T) in f32.
+
+    Rounds where the Pallas kernel rounds (flash_attention.py:471): the
+    unnormalised weights P = exp(s - max) go to the inputs' dtype before
+    the P V product, the row sum l stays f32, and the output is (P V) / l.
+    In f32 (and f64) the rounding is a no-op."""
     b, t, d = q.shape
     acc = _acc_dtype(q.dtype)
     scores = (_heads(q, n_head, acc) @ _heads(k, n_head, acc).transpose(-1, -2)) * scale
-    w = torch.softmax(scores, dim=-1)
-    out = (w @ _heads(v, n_head, acc)).transpose(1, 2).reshape(b, t, d).to(q.dtype)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    out = (p.to(q.dtype).to(acc) @ _heads(v, n_head, acc)) / l
+    out = out.transpose(1, 2).reshape(b, t, d).to(q.dtype)
     if return_lse:
-        return out, torch.logsumexp(scores, dim=-1)
+        return out, (m + torch.log(l)).squeeze(-1)
     return out
 
 
@@ -59,20 +67,25 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor, n_head: int) -> torch.Ten
 def flash_attention_bwd_ref(q, k, v, o, lse, do, n_head: int, scale: float,
                             needs=(True, True, True)):
     """Plain twin of the backward, in f32: with P = exp(scale q k^T - lse)
-    recomputed, dV = P^T dO, dS = P * (dO V^T - D), dQ = scale dS K and
-    dK = scale dS^T Q. Returns (dq, dk, dv) in q/k/v's dtypes, None where
-    ``needs`` is False (dq alone skips dV; dk, dv skip dQ)."""
+    recomputed, dV = P^T dO, dS = scale P * (dO V^T - D), dQ = dS K and
+    dK = dS^T Q. Returns (dq, dk, dv) in q/k/v's dtypes, None where
+    ``needs`` is False (dq alone skips dV; dk, dv skip dQ).
+
+    Rounds where the Pallas kernels round (flash_attention.py:900, :918,
+    :1258): P and the scaled dS go to the inputs' dtype before the second
+    products, whose sums stay f32. In f32 (and f64) that is a no-op."""
     acc = _acc_dtype(q.dtype)
     qh, kh, vh, doh = (_heads(x, n_head, acc) for x in (q, k, v, do))
     p = torch.exp((qh @ kh.transpose(-1, -2)) * scale - lse[..., None].to(acc))
     ds = p * (doh @ vh.transpose(-1, -2) - attention_delta(o, do, n_head)[..., None])
+    ds = (ds * scale).to(q.dtype).to(acc)
 
     def merge(x, like):
         return x.transpose(1, 2).reshape(like.shape).to(like.dtype)
 
-    dq = merge((ds @ kh) * scale, q) if needs[0] else None
-    dk = merge((ds.transpose(-1, -2) @ qh) * scale, k) if needs[1] else None
-    dv = merge(p.transpose(-1, -2) @ doh, v) if needs[2] else None
+    dq = merge(ds @ kh, q) if needs[0] else None
+    dk = merge(ds.transpose(-1, -2) @ qh, k) if needs[1] else None
+    dv = merge(p.to(q.dtype).to(acc).transpose(-1, -2) @ doh, v) if needs[2] else None
     return dq, dk, dv
 
 

@@ -310,20 +310,30 @@ def _flash_views(gen, b, t, s, n_head, dh, dtype):
     return q, kv[..., :d], kv[..., d:]
 
 
+# the bf16 kernels' 64-row tiles against T and S: ragged edges (T 63, 65,
+# 230; S 77, 150, 1500 = 23 x 64 + 28) and single rows, at batch 2 (TMA fills
+# rows past T or S with zeros per batch row; the kernels mask them)
+_RAGGED = [(1, 1), (63, 1500), (100, 77), (300, 300)] + [
+    (t, s) for t in (1, 63, 65, 230) for s in (1, 150, 1500)
+    if (t, s) not in ((1, 1), (63, 1500))]
+
+
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize('dh', [32, 64])
-@pytest.mark.parametrize('t,s', [(1, 1), (63, 1500), (100, 77), (300, 300)])
+@pytest.mark.parametrize('t,s', _RAGGED)
 def test_flash_backward_kernels_match_twin(cuda, dtype, tol, dh, t, s):
-    """The forward's lse, then flash_attn_bwd_dkv and flash_attn_bwd_dq on
-    the kernel's own output against the twins, and a rerun of each equal
-    bit for bit (no atomics: one thread sums each row in a fixed order).
-    f32: sums in another order; bf16: the outputs round to bf16."""
+    """The forward's output and lse, then flash_attn_bwd_dkv and
+    flash_attn_bwd_dq on the kernel's own output against the twins, and a
+    rerun of each equal bit for bit (no atomics: one block sums each row in
+    a fixed order). f32: sums in another order; bf16: the same rounding
+    points as the twins, outputs rounded to bf16."""
     from stable_ts_tpu_torch.ops import flash_attn as fa
     n_head = 3
     scale = dh ** -0.5
     q, k, v = _flash_views(cuda, 2, t, s, n_head, dh, dtype)
     o, lse = fa._flash_cuda(q, k, v, n_head, scale, return_lse=True)
-    _, lse_ref = fa.flash_attention_ref(q, k, v, n_head, scale, return_lse=True)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, n_head, scale, return_lse=True)
+    assert _rel(o, o_ref) <= tol
     assert lse.shape == (2, n_head, t) and lse.dtype == torch.float32
     assert _rel(lse, lse_ref) <= 1e-5
     do = _randn(cuda, 2, t, n_head * dh, dtype=dtype)
