@@ -11,6 +11,8 @@ a synthetic rank table the size of the multilingual vocabulary) through
   projection on every step);
 - ladder: 30 s on temperature=(0.0, 0.4, 0.8) with best_of=5 (random
   weights fail every rung, so every rung runs);
+- no heads: the same weights with no known alignment heads, 10 s greedy
+  with language='en' (6 heads selected per token from the full capture);
 - dq: the same weights quantized to int8 on the card (``dq=True``), with
   packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
   and 30 s beam_size=5 with no language;
@@ -24,16 +26,20 @@ a synthetic rank table the size of the multilingual vocabulary) through
 The launch counts are reset before each path (each train step) and read
 after it; the script fails unless each path launched the kernels it runs,
 all thirteen entries among them. A tiny f32 model also takes three train
-steps on the CPU (twins) and on the card (kernels), which must agree.
+steps on the CPU (twins) and on the card (kernels), which must agree, and
+transcribes alike through both (with known heads, quantized, and with no
+heads). The two kernels redesigned last (the cross entries on a
+thread-block cluster, vocab_proj on wgmma) must give bit-identical reruns.
 
     python3 chip_smoke.py        # needs one CUDA GPU; exits non-zero on any failure
 
 The second-to-last line of stdout is a JSON object with each kernel's
 launches on the four paths, its error against its twin, its time, its
 twin's, the bound on its time (H100 SXM data sheet) and, where one PyTorch
-call computes the same function, that call's time (the flash entries and
-their library calls by device time alone, from torch.profiler; the others
-by CUDA events around the calls); the last line is
+call computes the same function, that call's time (every kernel and
+library call by its device time alone, from torch.profiler; the CUDA-event
+times, which also read the wrappers' host time, are logged beside them);
+the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the package
 beside it, the script fails and prints no result.
 """
@@ -121,6 +127,23 @@ def profiled(fn):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return out, wall, busy, flash, [(e.key[:48], e.count, round(e.self_device_time_total / 1e3, 3))
                                     for e in top]
+
+
+def both_ms(fn, iters: int = 20, warmup: int = 3) -> tuple:
+    """(device time alone, CUDA-event time) of fn() in ms per call."""
+    return device_ms(fn, iters, warmup), cuda_ms(fn, iters, warmup)
+
+
+def rerun_identical(name: str, fn, got, what: str) -> None:
+    """A second call of fn must equal ``got`` bit for bit (fixed-order
+    sums, no atomics)."""
+    import torch
+    again = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    log(f'[kernel] {name} {what}: rerun bit-identical: {same}')
+    if not same:
+        raise AssertionError(f'{name} {what}: a rerun differs')
 
 
 def rel_err(got, ref) -> tuple:
@@ -224,9 +247,10 @@ def kernel_checks(torch, results: dict) -> None:
         ref = self_attn.self_attn_decode_ref(*args)
         torch.cuda.synchronize()
         err = check('self_attn_decode', got, ref, tol, what)
-        ms = cuda_ms(lambda: self_attn.self_attn_decode(*args), iters=200)
-        plain = cuda_ms(lambda: self_attn.self_attn_decode_ref(*args), iters=200)
-        log(f'[kernel] self_attn_decode {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
+        ms, ev = both_ms(lambda: self_attn.self_attn_decode(*args), iters=200)
+        plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args), iters=200)
+        log(f'[kernel] self_attn_decode {what}: device kernel {ms:.4f} ms, twin '
+            f'{plain:.4f} ms; events {ev:.4f} ms')
         if cdtype == torch.int8:
             # keys 0..pos of one layer's K and V rows and their scales
             n = pos + 1
@@ -249,12 +273,15 @@ def kernel_checks(torch, results: dict) -> None:
         # both round q and the weights to bf16 at the same places; a weight
         # whose f32 value differs in its last bit may round the other way
         err = check('cross_attn_decode', got, ref, 1e-3, what)
-        ms = cuda_ms(lambda: cross_attn.cross_attn_decode(q, kv, sc, 7, 1500, h),
-                     iters=200)
-        plain = cuda_ms(lambda: cross_attn.cross_attn_decode_ref(
+        rerun_identical('cross_attn_decode',
+                        lambda: cross_attn.cross_attn_decode(q, kv, sc, 7, 1500, h), got, what)
+        ms, ev = both_ms(lambda: cross_attn.cross_attn_decode(q, kv, sc, 7, 1500, h),
+                         iters=200)
+        plain = device_ms(lambda: cross_attn.cross_attn_decode_ref(
             q, kv[7, :, 0], kv[7, :, 1], sc[7, :, 0], sc[7, :, 1], 1500, h),
             iters=200)
-        log(f'[kernel] cross_attn_decode {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
+        log(f'[kernel] cross_attn_decode {what}: device kernel {ms:.4f} ms, twin '
+            f'{plain:.4f} ms; events {ev:.4f} ms')
         if quant:
             results['cross_attn_decode'] = entry(
                 err, ms, plain, nbytes(kv[7], sc[7], q, got), 4 * 1500 * d, 'bf16')
@@ -284,9 +311,10 @@ def kernel_checks(torch, results: dict) -> None:
         f'({n} tokens, {m} frames)')
     if not same:
         raise AssertionError('DTW jump frames differ between kernel and twin')
-    ms = cuda_ms(lambda: dtw.dtw_cost(x))
-    plain = cuda_ms(lambda: dtw.dtw_cost_ref(x), iters=3, warmup=1)
-    log(f'[kernel] dtw_cost (1,226,1500): kernel {ms:.4f} ms, twin {plain:.4f} ms')
+    ms, ev = both_ms(lambda: dtw.dtw_cost(x))
+    plain = device_ms(lambda: dtw.dtw_cost_ref(x), iters=3, warmup=1)
+    log(f'[kernel] dtw_cost (1,226,1500): device kernel {ms:.4f} ms, twin {plain:.4f} ms; '
+        f'events {ev:.4f} ms')
     # an add and two minimums per cell
     results['dtw_cost'] = entry(err, ms, plain, nbytes(x, got), 3 * n * m, 'f32')
 
@@ -302,9 +330,12 @@ def kernel_checks(torch, results: dict) -> None:
     torch.cuda.synchronize()
     what = 'g=5 int8 kv (32,1,2,1500,1280)'
     err = check('cross_attn_decode_group', got, ref, 1e-3, what)
-    ms = cuda_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g), iters=200)
-    plain = cuda_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=200)
-    log(f'[kernel] cross_attn_decode_group {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
+    rerun_identical('cross_attn_decode_group',
+                    lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g), got, what)
+    ms, ev = both_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g), iters=200)
+    plain = device_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=200)
+    log(f'[kernel] cross_attn_decode_group {what}: device kernel {ms:.4f} ms, twin '
+        f'{plain:.4f} ms; events {ev:.4f} ms')
     results['cross_attn_decode_group'] = entry(
         err, ms, plain, nbytes(kv[7], sc[7], q, got), 4 * g * 1500 * d, 'bf16')
 
@@ -323,11 +354,12 @@ def kernel_checks(torch, results: dict) -> None:
     torch.cuda.synchronize()
     what = 'int8 cache (32,5,256,1280) pos 200, random anc'
     err = check('self_attn_decode_beam', got, ref, 1e-4, what)
-    ms = cuda_ms(lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=rows),
-                 iters=200)
-    plain = cuda_ms(lambda: self_attn.self_attn_decode_ref(*args, anc=anc,
-                                                           q_per_kv=rows), iters=200)
-    log(f'[kernel] self_attn_decode_beam {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
+    ms, ev = both_ms(lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=rows),
+                     iters=200)
+    plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args, anc=anc,
+                                                             q_per_kv=rows), iters=200)
+    log(f'[kernel] self_attn_decode_beam {what}: device kernel {ms:.4f} ms, twin '
+        f'{plain:.4f} ms; events {ev:.4f} ms')
     # the cache rows this ancestry table reaches (each once), their scales,
     # the table's keys 0..pos, q and the output
     n = pos + 1
@@ -386,9 +418,10 @@ def epilogue_checks(torch, results: dict, randn, gen) -> None:
             f'differ: {ids_ok} {"OK" if ok else "FAIL"}')
         if not ok:
             raise AssertionError(f'logit_epilogue {what} disagrees with its twin')
-        ms = cuda_ms(lambda: epi.fused_logit_aggregates(*args), iters=50)
-        plain = cuda_ms(lambda: epi.fused_logit_aggregates_ref(*args), iters=20)
-        log(f'[kernel] logit_epilogue {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
+        ms, ev = both_ms(lambda: epi.fused_logit_aggregates(*args), iters=50)
+        plain = device_ms(lambda: epi.fused_logit_aggregates_ref(*args), iters=20)
+        log(f'[kernel] logit_epilogue {what}: device kernel {ms:.4f} ms, twin '
+            f'{plain:.4f} ms; events {ev:.4f} ms')
         if b == 1:
             results['logit_epilogue'] = entry(
                 err, ms, plain, nbytes(x, emb, suppress, sil, flags, got),
@@ -413,10 +446,13 @@ def int4_cross_checks(torch, results: dict, randn) -> None:
         torch.cuda.synchronize()
         what = f'g={g} int4 kv (32,1,2,1500,1280) packed (32,1,2,1500,640)'
         err = check(name, got, ref, 1e-3, what)
-        ms = cuda_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g, bits=4),
-                     iters=200)
-        plain = cuda_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=200)
-        log(f'[kernel] {name} {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms')
+        rerun_identical(name, lambda: cross_attn.cross_attn_decode(
+            *args, q_per_kv=g, bits=4), got, what)
+        ms, ev = both_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g, bits=4),
+                         iters=200)
+        plain = device_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=200)
+        log(f'[kernel] {name} {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms; '
+            f'events {ev:.4f} ms')
         results[name] = entry(err, ms, plain, nbytes(kv[7], sc[7], q, got),
                               4 * g * s * d, 'bf16')
 
@@ -444,8 +480,8 @@ def woq_checks(torch, results: dict, randn) -> None:
         what = f'M={m} (K,N)=({k},{n}) {str(dtype)[6:]} x'
         err = check('woq_matmul', got, ref, tol, what)
         iters = 200 if m <= 5 else 20
-        ms = cuda_ms(lambda: woq._woq_cuda(x, q, scale), iters=iters)
-        plain = cuda_ms(lambda: woq.woq_matmul_ref(x, q, scale), iters=iters)
+        ms, ev = both_ms(lambda: woq._woq_cuda(x, q, scale), iters=iters)
+        plain = device_ms(lambda: woq.woq_matmul_ref(x, q, scale), iters=iters)
         numbers = entry(err, ms, plain, nbytes(x, q, scale, got), 2 * m * n * k,
                         'bf16' if dtype == torch.bfloat16 else 'f32')
         extra = ''
@@ -453,39 +489,48 @@ def woq_checks(torch, results: dict, randn) -> None:
             # the nearest library call, not the same function: its scales
             # are in x's dtype and its output is bf16
             scale_bf16 = scale.to(dtype)
-            near = cuda_ms(lambda: torch._weight_int8pack_mm(x, q, scale_bf16),
-                           iters=iters)
+            near = device_ms(lambda: torch._weight_int8pack_mm(x, q, scale_bf16),
+                             iters=iters)
             extra = f', torch._weight_int8pack_mm (bf16 scales) {near:.4f} ms'
-        log(f'[kernel] woq_matmul {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms'
-            f'{extra}, bound {numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
+        log(f'[kernel] woq_matmul {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms'
+            f'{extra}, bound {numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]}); events '
+            f'{ev:.4f} ms')
         if (m, k, n) == (1, 1280, 5120):
             results['woq_matmul'] = numbers
 
 
 def vocab_checks(torch, results: dict, randn) -> None:
     """The vocab projection of the beam and sampled steps: x (M, 1280) bf16
-    against emb (51866, 1280) bf16, M = 1, 5, 16; f32 logits within 1e-4
-    relative to the largest (f32 sums of the same exact products)."""
+    against emb (51866, 1280) bf16, M = 1, 5, 16 (beam and best_of steps)
+    and 64, 256 (the batched driver's rows), on the tensor-core kernel; one
+    f32 shape on the CUDA-core kernel. f32 logits within 1e-4 relative to
+    the largest (f32 sums of the same exact products); bf16 reruns
+    bit-identical. Device times and events beside the library call."""
     from stable_ts_tpu_torch.ops import vocab_proj as vp
     emb = (randn(51866, 1280) * 0.02).to(torch.bfloat16)
-    for m in (1, 5, 16):
+    for m in (1, 5, 16, 64, 256):
         x = randn(m, 1280, dtype=torch.bfloat16)
         got = vp.vocab_proj(x, emb)
         ref = vp.vocab_proj_ref(x, emb)
         torch.cuda.synchronize()
         what = f'M={m} emb (51866,1280) bf16'
         err = check('vocab_proj', got, ref, 1e-4, what)
-        ms = cuda_ms(lambda: vp.vocab_proj(x, emb), iters=100)
-        plain = cuda_ms(lambda: vp.vocab_proj_ref(x, emb), iters=20)
+        rerun_identical('vocab_proj', lambda: vp.vocab_proj(x, emb), got, what)
+        ms, ev = both_ms(lambda: vp.vocab_proj(x, emb), iters=100)
+        plain = device_ms(lambda: vp.vocab_proj_ref(x, emb), iters=20)
         # the library call: one bf16 product with f32 output
-        lib = cuda_ms(lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), iters=100)
+        lib, lib_ev = both_ms(lambda: torch.mm(x, emb.t(), out_dtype=torch.float32),
+                              iters=100)
         numbers = entry(err, ms, plain, nbytes(x, emb, got), 2 * m * 51866 * 1280,
                         'bf16', lib)
-        log(f'[kernel] vocab_proj {what}: kernel {ms:.4f} ms, twin {plain:.4f} ms, '
-            f'torch.mm(out_dtype=float32) {lib:.4f} ms, bound '
-            f'{numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
+        log(f'[kernel] vocab_proj {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms, '
+            f'torch.mm(out_dtype=float32) {lib:.4f} ms, bound {numbers["bound_ms"]:.4f} ms '
+            f'({numbers["bound_by"]}); events {ev:.4f} ms, torch.mm {lib_ev:.4f} ms')
         if m == 5:
             results['vocab_proj'] = numbers
+    x, emb32 = randn(5, 1280), randn(4100, 1280) * 0.02
+    check('vocab_proj', vp.vocab_proj(x, emb32), vp.vocab_proj_ref(x, emb32), 1e-4,
+          'M=5 emb (4100,1280) f32 (CUDA cores)')
 
 
 def flash_bwd_checks(torch, results: dict, randn) -> None:
@@ -711,18 +756,20 @@ def train_path(torch, dims, audio) -> dict:
 def tiny_parity(torch) -> None:
     """The tiny f32 model transcribes the same seeded audio alike on the
     CPU (every op through its twin) and on the GPU (through the kernels):
-    with float weights on int8 cross K/V, and quantized (dq) on packed int4
-    cross K/V."""
+    with float weights on int8 cross K/V, quantized (dq) on packed int4
+    cross K/V, and with no known alignment heads (6 selected dynamically
+    per token)."""
     import numpy as np
     from stable_ts_tpu_torch.loaders import WhisperTorch, load_test_model
     audio = (np.random.default_rng(21).standard_normal(SR * 40) * 0.1
              ).astype(np.float32)
-    for dq, kv_quant, what in ((False, True, 'f32 weights, int8 cross K/V'),
-                               (True, 4, 'int8 weights (dq), int4 cross K/V')):
-        cpu = load_test_model(seed=0, device='cpu', alignment_heads=HEADS_TINY, dq=dq)
+    for dq, kv_quant, heads, what in (
+            (False, True, HEADS_TINY, 'f32 weights, int8 cross K/V'),
+            (True, 4, HEADS_TINY, 'int8 weights (dq), int4 cross K/V'),
+            (False, True, None, 'f32 weights, int8 cross K/V, no alignment heads')):
+        cpu = load_test_model(seed=0, device='cpu', alignment_heads=heads, dq=dq)
         gpu = WhisperTorch(cpu.dims, copy.deepcopy(cpu.params), device='cuda',
-                           name='test-tiny', ranks=cpu._ranks,
-                           alignment_heads=HEADS_TINY)
+                           name='test-tiny', ranks=cpu._ranks, alignment_heads=heads)
         if gpu.quantized != dq:
             raise AssertionError(f'tiny model: quantized {gpu.quantized} != {dq}')
         kw = dict(language='en', temperature=0, verbose=None, kv_quant=kv_quant)
@@ -777,8 +824,7 @@ def main() -> int:
     _build.lib()
     log(f'[build] {lib_path.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s')
     for name, r in _build.kernel_resources(lib_path).items():
-        if 'flash' in name:
-            log(f'[build] ptxas {name}: {r}')
+        log(f'[build] ptxas {name}: {r}')
 
     results = {}
     kernel_checks(torch, results)
@@ -829,6 +875,19 @@ def main() -> int:
           'cross_attn_decode_group', 'vocab_proj', 'dtw_cost')),
     ]
     counts = drive_paths(torch, model, paths, ladder)
+
+    # -- no known heads: the same weights, 6 heads selected per token ------------------
+    no_heads = WhisperTorch(dims, params, device='cuda', name=MODEL + '-no-heads',
+                            ranks=ranks, alignment_heads=None)
+    no_heads_paths = [
+        ('no heads', [('10 s greedy, language=en, 6 dynamic heads', audio[:10 * SR])],
+         dict(language='en', temperature=0),
+         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
+          'dtw_cost')),
+    ]
+    for name, n in drive_paths(torch, no_heads, no_heads_paths, ladder).items():
+        counts[name] = counts.get(name, 0) + n
+    del no_heads
 
     # -- the dq path: the same weights quantized on the card, int4 cross K/V -------------
     from stable_ts_tpu_torch.models.whisper.quantization import quantized_bytes

@@ -14,6 +14,12 @@ output, the tokenizer) is the port's own copy of ``stable_ts_tpu``'s: this
 package imports nothing of ``stable_ts_tpu`` and nothing of jax.
 """
 from ._version import __version__
+from .utils import tune_host_allocator as _tune_host_allocator
+
+# Large-buffer allocator hygiene before any pipeline allocation happens
+# (see utils.tune_host_allocator: multi-second page-fault overhead
+# otherwise on hosts with slow memory fault-in).
+_tune_host_allocator()
 from .result import WhisperResult, Segment, WordTiming
 from .text_output import (result_to_srt_vtt, result_to_ass, result_to_tsv,
                           result_to_txt, save_as_json, load_result)

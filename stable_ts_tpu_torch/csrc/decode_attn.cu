@@ -1,4 +1,4 @@
-// Decode attention: one query row per (batch row, head) against a cache.
+// Decode attention: one step's query rows against a cache.
 //
 // Replaces four TPU kernels of stable_ts_tpu:
 //   - ops/self_attn.py:_kernel (self_attn_decode): keys j <= pos of the
@@ -6,25 +6,22 @@
 //   - ops/self_attn.py:_kernel_beam (self_attn_decode with anc): the same,
 //     but beam row r reads key j from the cache row of its window group that
 //     anc[r, j] names (the beam loop reshuffles that table, never the cache);
-//   - ops/cross_attn.py:_kernel, the g = 1 8-bit branch (cross_attn_decode):
-//     keys j < s of the precomputed cross-attention K/V;
-//   - ops/cross_attn.py:_kernel, the q_per_kv = g > 1 branch: g query rows
-//     (the beams or best_of candidates of one window) share their window's
-//     cross K/V;
-//   - ops/cross_attn.py:_kernel, the bits = 4 branch (:60-75), for g = 1 and
-//     g > 1: the cross K/V as packed int4 (dtype code DT_I4, type Int4x2).
+//   - ops/cross_attn.py:_kernel, all its branches: g = 1 (cross_attn_decode),
+//     q_per_kv = g > 1, the g beams or best_of candidates of one window
+//     sharing its cross K/V (cross_attn_decode_group), and bits = 4
+//     (:60-75), the cross K/V as packed int4 (dtype code DT_I4, type Int4x2).
 //
 // What bounds it on the card: bytes. A decode step reads each cache row
 // once and does 2 multiply-adds per byte (2 g with g query rows per row),
 // far below the ~295 FLOP/byte the H100 needs before compute matters. So the
-// kernels read every K and V row exactly once per block, with 16-byte loads
-// along d (the row-major (.., S, d) layout makes a head's slice of a row
+// kernels read every K and V row exactly once, with 16-byte loads along d
+// (the row-major (.., S, d) layout makes a head's slice of a row
 // contiguous), widen int8/bf16 to f32 in registers with the per-position
 // dequant scale applied to the logit and weight rows, and never write a
-// dequantized copy or the logits to device memory. Softmax runs in f32 in
-// shared memory.
+// dequantized copy or the logits to device memory. Softmax runs in f32.
 //
-// decode_attn_kernel: one block per (head, batch row); 128 threads:
+// decode_attn_kernel (the self and beam entries): one block per (head,
+// batch row); 128 threads:
 //   1. each thread scores key rows j = tid, tid + 128, ... (q . k_j) * ks[j];
 //   2. block max / sum -> unnormalized weights p_j * vs[j] in shared memory;
 //   3. V: the head's d_head slice of a row is CPR 16-byte chunks; 128 / CPR
@@ -33,12 +30,28 @@
 // The beam variant takes key j's row from (r / g) * g + anc[r, j] (a
 // 4-byte read per key beside the 64-byte int8 head slice).
 //
-// cross_group_kernel: one block per (head, window, chunk of up to GMAX of
-// the window's g query rows). Each K row is loaded once and scored against
-// every query row of the chunk; each V row is loaded once (8-byte loads, so
-// the GMAX x 8 accumulators stay in registers) and added into every row's
-// sum. With g <= GMAX the window's K/V stream is read once for all g rows,
-// which is what the TPU branch exists for.
+// cross_cluster_kernel (both cross entries, every K/V type): a block per
+// (chunk of keys, head, window and chunk of up to GMAX of its g query rows),
+// the CLUSTER key chunks of one head in one thread-block cluster, so a
+// window's 1500 keys keep 8 SMs per head busy where one block per head left
+// 112 of 132 SMs idle. Block c owns keys [c per, (c + 1) per) with per =
+// ceil(s / CLUSTER) and:
+//   1. issues cp.async copies of its chunk's K and V head slices into shared
+//      memory at once (V arrives while K is scored);
+//   2. scores its keys against every query row of the block (q rounded to
+//      bf16), publishes its chunk maximum, cluster.sync();
+//   3. takes the global maximum m of the CLUSTER chunk maxima through
+//      distributed shared memory (exact: a max does not depend on order);
+//   4. forms the weights bf16(exp(s - m) vs) with the GLOBAL m, as the TPU
+//      kernel and the twin round them, its chunk sum l_c = sum exp(s - m) and
+//      its unnormalized o_c, publishes both, cluster.sync();
+//   5. block 0 sums o_c and l_c over c = 0 ... CLUSTER - 1 in that fixed
+//      order through distributed shared memory and writes o / l;
+//   6. a last cluster.sync(), so no block exits while its shared memory is
+//      still read.
+// No atomics and no scratch in device memory, one launch: reruns are
+// bit-identical. A flash-decoding split (a maximum per chunk, rescaled in a
+// second pass) would round the weights at another point than the twin.
 //
 // The cross entries round the query and the weights to bf16 before the two
 // products, as the TPU kernel does for its MXU (cross_attn.py:107,118-120,
@@ -53,14 +66,19 @@
 // int8's. Offsets inside a row count logical values (``at``); the batch and
 // row strides count bytes. The values, their scales and the bf16 rounding
 // points are the TPU kernel's.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int DEC_THREADS = 128;
-constexpr int GMAX = 8;  // query rows per block of the cross group entry
+constexpr int GMAX = 8;     // query rows per block of the cross kernel
+constexpr int CLUSTER = 8;  // key chunks of one head: the largest portable cluster
 
-template <typename T, int DH, bool ROUND, bool BEAM>
+template <typename T, int DH, bool BEAM>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ ks,
@@ -85,10 +103,7 @@ decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
   // the batch row that holds key j
   auto src = [&](int j) -> long long { return BEAM ? group0 + ancb[j] : b; };
 
-  if (tid < DH) {
-    const float qv = q[(long long)b * d + h * DH + tid];
-    qs[tid] = ROUND ? round_bf16(qv) : qv;
-  }
+  if (tid < DH) qs[tid] = q[(long long)b * d + h * DH + tid];
   __syncthreads();
 
   // 1. scores
@@ -115,8 +130,7 @@ decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
   for (int j = tid; j < n_keys; j += DEC_THREADS) {
     const float e = expf(p[j] - m);
     lsum += e;
-    const float w = vs ? e * vs[src(j) * sc_bs + j] : e;
-    p[j] = ROUND ? round_bf16(w) : w;
+    p[j] = vs ? e * vs[src(j) * sc_bs + j] : e;
   }
   const float l = block_reduce<DEC_THREADS>(lsum, 0.f, SumOp(), scratch);
 
@@ -142,134 +156,259 @@ decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- the cross entries: keys split across a thread-block cluster ---------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most PENDING of this thread's committed groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+// bytes of one head's slice of a K or V row
 template <typename T, int DH>
-__global__ void __launch_bounds__(DEC_THREADS)
-cross_group_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ ks,
-                   const float* __restrict__ vs, float* __restrict__ out,
-                   int n_head, int n_keys, long long kv_bs, long long kv_rs,
-                   long long sc_bs, int g) {
-  // K stage: 16-byte chunks (8-byte for int4, so a chunk holds 16 values
-  // as int8's does and the GMAX sums beside it stay in registers)
+struct Slice {
+  static constexpr int BYTES = DH * static_cast<int>(sizeof(T)) / Pack<T>::V;
+};
+
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+
+// What a block publishes to its cluster (static shared memory): per-warp
+// partials, so no block-wide reduction precedes a cluster barrier.
+template <int DH>
+struct Published {
+  float peak[GMAX][DEC_WARPS];    // each warp's maximum score per query row
+  float total[GMAX][DEC_WARPS];   // each warp's sum of exp(s - m)
+  float o[GMAX][DH];              // the chunk's unnormalized weighted V sum
+};
+
+template <typename T, int DH>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DEC_THREADS)
+cross_cluster_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs, float* __restrict__ out, int n_head,
+                     int n_keys, long long kv_bs, long long kv_rs, long long sc_bs, int g) {
+  constexpr int RB = Slice<T, DH>::BYTES;
+  // scores: 16-byte chunks (8-byte for int4, so a chunk holds 16 values as
+  // int8's does and the GMAX sums beside it stay in registers), CPR lanes per
+  // key row
   constexpr int KB = 16 / Pack<T>::V;
   constexpr int VN = VecB<T, KB>::N;
   constexpr int CPR = DH / VN;
-  // V stage: 8-byte chunks (4-byte for int4), at most 8 values each, so the
-  // GMAX x 8 accumulators stay in registers
+  constexpr int RPP = DEC_THREADS / CPR;   // key rows per pass
+  // V: 8-byte chunks (4-byte for int4), at most 8 values each, so the GMAX x 8
+  // sums stay in registers; CPR8 lanes per row, GROUPS rows per pass
   constexpr int VB = 8 / Pack<T>::V;
   constexpr int V8 = VecB<T, VB>::N;
   constexpr int CPR8 = DH / V8;
   constexpr int GROUPS = DEC_THREADS / CPR8;
-  static_assert(DH % VN == 0 && DH % V8 == 0, "d_head must fill whole chunks");
+  static_assert(DH % VN == 0 && DH % V8 == 0 && RB % 16 == 0 && CPR8 <= 32,
+                "d_head must fill whole chunks");
 
-  extern __shared__ float p[];           // GMAX rows of n_keys scores / weights
+  // dynamic: the K chunk, the V chunk, [ng][per] scores, the K and V scales
+  extern __shared__ __align__(16) uint8_t dyn[];
   __shared__ float qs[GMAX][DH];
-  __shared__ float part[GROUPS][DH];
-  __shared__ float scratch[DEC_THREADS / 32];
+  __shared__ float wpart[DEC_WARPS][GMAX][DH];
+  __shared__ float mx[GMAX];
+  __shared__ Published<DH> pub;
 
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int q0 = b * g + blockIdx.z * GMAX;          // first query row
-  const int ng = min(GMAX, g - blockIdx.z * GMAX);   // query rows here
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y;
+  const int chunks_g = (g + GMAX - 1) / GMAX;
+  const int b = blockIdx.z / chunks_g;
+  const int q0 = b * g + (blockIdx.z % chunks_g) * GMAX;   // first query row
+  const int ng = min(GMAX, b * g + g - q0);                // query rows here
   const int d = n_head * DH;
-  const T* kb = at(k + b * kv_bs, h * DH);
-  const T* vb = at(v + b * kv_bs, h * DH);
-  const float* ksb = ks ? ks + b * sc_bs : nullptr;
-  const float* vsb = vs ? vs + b * sc_bs : nullptr;
+  const int per = (n_keys + CLUSTER - 1) / CLUSTER;
+  const int j0 = min(c * per, n_keys);
+  const int n = min(per, n_keys - j0);                     // this block's keys (may be 0)
 
+  uint8_t* kbuf = dyn;
+  uint8_t* vbuf = dyn + per * RB;
+  float* p = reinterpret_cast<float*>(vbuf + per * RB);
+  float* ksc = p + ng * per;
+  float* vsc = ksc + per;
+
+  // 1. the chunk's K and V head slices into shared memory, K first; the
+  //    query rows and the scales (1 for a float cache) load meanwhile
+  const T* krow = at(k + b * kv_bs + j0 * kv_rs, h * DH);
+  const T* vrow = at(v + b * kv_bs + j0 * kv_rs, h * DH);
+  constexpr int PPR = RB / 16;   // 16-byte pieces per row
+  for (int i = tid; i < n * PPR; i += DEC_THREADS)
+    cp_async16(kbuf + i * 16,
+               reinterpret_cast<const uint8_t*>(krow + (i / PPR) * kv_rs) + (i % PPR) * 16);
+  cp_async_commit();
+  for (int i = tid; i < n * PPR; i += DEC_THREADS)
+    cp_async16(vbuf + i * 16,
+               reinterpret_cast<const uint8_t*>(vrow + (i / PPR) * kv_rs) + (i % PPR) * 16);
+  cp_async_commit();
   for (int i = tid; i < ng * DH; i += DEC_THREADS)
     qs[i / DH][i % DH] = round_bf16(q[(long long)(q0 + i / DH) * d + h * DH + i % DH]);
+  for (int r = tid; r < n; r += DEC_THREADS) {
+    ksc[r] = ks ? ks[b * sc_bs + j0 + r] : 1.f;
+    vsc[r] = vs ? vs[b * sc_bs + j0 + r] : 1.f;
+  }
+  cp_async_wait<1>();
   __syncthreads();
 
-  // 1. scores of every query row against each K row, read once
+  // 2. scores of every query row: CPR lanes share a key row, reduced by
+  //    shuffles; each warp publishes its maximum per query row
+  const int chunk = tid % CPR;
   float lmax[GMAX];
 #pragma unroll
   for (int gi = 0; gi < GMAX; ++gi) lmax[gi] = -INFINITY;
-  for (int j = tid; j < n_keys; j += DEC_THREADS) {
-    const T* row = kb + j * kv_rs;
-    float acc[GMAX];
+  for (int r0 = 0; r0 < n; r0 += RPP) {
+    const int r = r0 + tid / CPR;
+    float kv[VN];
+    if (r < n) {
+      load_vec<KB>(at(reinterpret_cast<const T*>(kbuf + r * RB), chunk * VN), kv);
+    } else {
 #pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) acc[gi] = 0.f;
-    // one chunk's values live at a time, so the GMAX sums stay in registers
-#pragma unroll 1
-    for (int c = 0; c < CPR; ++c) {
-      float kv[VN];
-      load_vec<KB>(at(row, c * VN), kv);
+      for (int e = 0; e < VN; ++e) kv[e] = 0.f;
+    }
+    const float sc = r < n ? ksc[r] : 0.f;
 #pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi) {
-        if (gi < ng) {
+    for (int gi = 0; gi < GMAX; ++gi) {
+      if (gi < ng) {
+        float acc = 0.f;
 #pragma unroll
-          for (int e = 0; e < VN; ++e) acc[gi] = fmaf(qs[gi][c * VN + e], kv[e], acc[gi]);
+        for (int e = 0; e < VN; ++e) acc = fmaf(qs[gi][chunk * VN + e], kv[e], acc);
+#pragma unroll
+        for (int o = CPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL_MASK, acc, o);
+        if (chunk == 0 && r < n) {
+          const float s = acc * sc;
+          p[gi * per + r] = s;
+          lmax[gi] = fmaxf(lmax[gi], s);
         }
-      }
-    }
-    const float sc = ksb ? ksb[j] : 1.f;
-#pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) {
-      if (gi < ng) {
-        const float s = ksb ? acc[gi] * sc : acc[gi];
-        p[gi * n_keys + j] = s;
-        lmax[gi] = fmaxf(lmax[gi], s);
-      }
-    }
-  }
-  float m[GMAX];
-#pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi)
-    if (gi < ng) m[gi] = block_reduce<DEC_THREADS>(lmax[gi], -INFINITY, MaxOp(), scratch);
-
-  // 2. weights, rounded to bf16 after the V scale
-  float lsum[GMAX];
-#pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi) lsum[gi] = 0.f;
-  for (int j = tid; j < n_keys; j += DEC_THREADS) {
-    const float vsc = vsb ? vsb[j] : 1.f;
-#pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) {
-      if (gi < ng) {
-        const float e = expf(p[gi * n_keys + j] - m[gi]);
-        lsum[gi] += e;
-        p[gi * n_keys + j] = round_bf16(vsb ? e * vsc : e);
-      }
-    }
-  }
-  float l[GMAX];
-#pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi)
-    if (gi < ng) l[gi] = block_reduce<DEC_THREADS>(lsum[gi], 0.f, SumOp(), scratch);
-
-  // 3. each V row read once, added into every query row's sum
-  const int chunk = tid % CPR8, group = tid / CPR8;
-  float acc[GMAX][V8];
-#pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi)
-#pragma unroll
-    for (int e = 0; e < V8; ++e) acc[gi][e] = 0.f;
-  for (int j = group; j < n_keys; j += GROUPS) {
-    float vv[V8];
-    load_vec<VB>(at(vb + j * kv_rs, chunk * V8), vv);
-#pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) {
-      if (gi < ng) {
-        const float w = p[gi * n_keys + j];
-#pragma unroll
-        for (int e = 0; e < V8; ++e) acc[gi][e] = fmaf(w, vv[e], acc[gi][e]);
       }
     }
   }
 #pragma unroll
   for (int gi = 0; gi < GMAX; ++gi) {
     if (gi < ng) {
+      float m = lmax[gi];
 #pragma unroll
-      for (int e = 0; e < V8; ++e) part[group][chunk * V8 + e] = acc[gi][e];
-      __syncthreads();
-      if (tid < DH) {
-        float o = 0.f;
-        for (int r = 0; r < GROUPS; ++r) o += part[r][tid];
-        out[(long long)(q0 + gi) * d + h * DH + tid] = o / l[gi];
-      }
-      __syncthreads();
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
+      if (lane == 0) pub.peak[gi][warp] = m;
     }
   }
+  cluster.sync();
+
+  // 3. the global maximum of each query row over the cluster's chunks
+  if (tid < ng) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int cc = 0; cc < CLUSTER; ++cc) {
+      const Published<DH>* other = cluster.map_shared_rank(&pub, cc);
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w) m = fmaxf(m, other->peak[tid][w]);
+    }
+    mx[tid] = m;
+  }
+  __syncthreads();
+
+  // 4. weights rounded to bf16 after the V scale, each warp's exp sum
+  float lsum[GMAX];
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi) lsum[gi] = 0.f;
+  for (int r = tid; r < n; r += DEC_THREADS) {
+#pragma unroll
+    for (int gi = 0; gi < GMAX; ++gi) {
+      if (gi < ng) {
+        const float e = expf(p[gi * per + r] - mx[gi]);
+        lsum[gi] += e;
+        p[gi * per + r] = round_bf16(e * vsc[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi) {
+    if (gi < ng) {
+      float l = lsum[gi];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(FULL_MASK, l, o);
+      if (lane == 0) pub.total[gi][warp] = l;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  //    ... and the chunk's weighted sum of V rows: each row read once and
+  //    added into every query row's sum
+  const int c8 = tid % CPR8, grp = tid / CPR8;
+  float acc[GMAX][V8];
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi)
+#pragma unroll
+    for (int e = 0; e < V8; ++e) acc[gi][e] = 0.f;
+  for (int r = grp; r < n; r += GROUPS) {
+    float vv[V8];
+    load_vec<VB>(at(reinterpret_cast<const T*>(vbuf + r * RB), c8 * V8), vv);
+#pragma unroll
+    for (int gi = 0; gi < GMAX; ++gi) {
+      if (gi < ng) {
+        const float w = p[gi * per + r];
+#pragma unroll
+        for (int e = 0; e < V8; ++e) acc[gi][e] = fmaf(w, vv[e], acc[gi][e]);
+      }
+    }
+  }
+  // the row groups of a warp by shuffles, then the warps in order
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi) {
+    if (gi < ng) {
+#pragma unroll
+      for (int e = 0; e < V8; ++e) {
+        float a = acc[gi][e];
+#pragma unroll
+        for (int o = CPR8; o < 32; o <<= 1) a += __shfl_xor_sync(FULL_MASK, a, o);
+        if (lane < CPR8) wpart[warp][gi][c8 * V8 + e] = a;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < ng * DH; i += DEC_THREADS) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) o += wpart[w][i / DH][i % DH];
+    pub.o[i / DH][i % DH] = o;
+  }
+  cluster.sync();
+
+  // 5. block 0 combines the chunks in order c = 0 ... CLUSTER - 1: each
+  //    row's exp sum once, then every output
+  if (c == 0) {
+    if (tid < ng) {
+      float l = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CLUSTER; ++cc) {
+        const Published<DH>* other = cluster.map_shared_rank(&pub, cc);
+#pragma unroll
+        for (int w = 0; w < DEC_WARPS; ++w) l += other->total[tid][w];
+      }
+      mx[tid] = l;   // the maxima are spent: the row sums take their place
+    }
+    __syncthreads();
+    for (int i = tid; i < ng * DH; i += DEC_THREADS) {
+      const int gi = i / DH, dd = i % DH;
+      float o = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CLUSTER; ++cc) o += cluster.map_shared_rank(&pub, cc)->o[gi][dd];
+      out[(long long)(q0 + gi) * d + h * DH + dd] = o / mx[gi];
+    }
+  }
+  // 6. no block leaves while block 0 may still read its shared memory
+  cluster.sync();
 }
 
 // Arguments of every entry, passed through to the launches.
@@ -284,12 +423,12 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
-template <typename T, bool ROUND, bool BEAM>
+template <typename T, bool BEAM>
 int launch_rows(const DecodeArgs& a) {
   const dim3 grid(a.n_head, a.batch);
   const size_t smem = static_cast<size_t>(a.n_keys) * sizeof(float);
 #define DEC_LAUNCH(DH)                                                          \
-  decode_attn_kernel<T, DH, ROUND, BEAM><<<grid, DEC_THREADS, smem, a.stream>>>( \
+  decode_attn_kernel<T, DH, BEAM><<<grid, DEC_THREADS, smem, a.stream>>>(       \
       static_cast<const float*>(a.q), static_cast<const T*>(a.k),               \
       static_cast<const T*>(a.v), static_cast<const float*>(a.ks),              \
       static_cast<const float*>(a.vs), static_cast<float*>(a.out), a.n_head,    \
@@ -305,12 +444,17 @@ int launch_rows(const DecodeArgs& a) {
 }
 
 template <typename T, int DH>
-int launch_group_dh(const DecodeArgs& a) {
-  const dim3 grid(a.n_head, a.batch, (a.g + GMAX - 1) / GMAX);
-  const size_t smem = static_cast<size_t>(GMAX) * a.n_keys * sizeof(float);
-  const cudaError_t e = allow_dynamic_smem(cross_group_kernel<T, DH>, smem);
+int launch_cross_dh(const DecodeArgs& a) {
+  const int per = (a.n_keys + CLUSTER - 1) / CLUSTER;
+  const int ng = a.g < GMAX ? a.g : GMAX;
+  // the K and V chunks, ng rows of scores, the K and V scales
+  const size_t smem =
+      static_cast<size_t>(per) * (2 * Slice<T, DH>::BYTES + (ng + 2) * sizeof(float));
+  const cudaError_t e = allow_dynamic_smem(cross_cluster_kernel<T, DH>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cross_group_kernel<T, DH><<<grid, DEC_THREADS, smem, a.stream>>>(
+  // grid x is the cluster: CLUSTER key chunks of one head
+  const dim3 grid(CLUSTER, a.n_head, a.batch * ((a.g + GMAX - 1) / GMAX));
+  cross_cluster_kernel<T, DH><<<grid, DEC_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<float*>(a.out), a.n_head,
@@ -319,29 +463,28 @@ int launch_group_dh(const DecodeArgs& a) {
 }
 
 template <typename T>
-int launch_group(const DecodeArgs& a) {
+int launch_cross(const DecodeArgs& a) {
   switch (a.d_head) {
-    case 32: return launch_group_dh<T, 32>(a);
-    case 64: return launch_group_dh<T, 64>(a);
+    case 32: return launch_cross_dh<T, 32>(a);
+    case 64: return launch_cross_dh<T, 64>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-enum class Entry { kSelf, kCross, kBeam, kGroup };
+enum class Entry { kSelf, kBeam, kCross };
 
 template <Entry E, typename T>
 int launch_entry(const DecodeArgs& a) {
-  if constexpr (E == Entry::kSelf) return launch_rows<T, false, false>(a);
-  else if constexpr (E == Entry::kCross) return launch_rows<T, true, false>(a);
-  else if constexpr (E == Entry::kBeam) return launch_rows<T, false, true>(a);
-  else return launch_group<T>(a);
+  if constexpr (E == Entry::kSelf) return launch_rows<T, false>(a);
+  else if constexpr (E == Entry::kBeam) return launch_rows<T, true>(a);
+  else return launch_cross<T>(a);
 }
 
 template <Entry E>
 int dispatch(int dtype, const DecodeArgs& a) {
   switch (dtype) {
     case DT_I4:  // packed int4: the cross entries only
-      if constexpr (E == Entry::kCross || E == Entry::kGroup)
+      if constexpr (E == Entry::kCross)
         return launch_entry<E, Int4x2>(a);
       else
         return static_cast<int>(cudaErrorInvalidValue);
@@ -400,7 +543,7 @@ extern "C" int cross_attn_decode_group(const void* q, const void* k, const void*
                                        int dtype, int batch, int n_head, int d_head,
                                        int n_keys, long long kv_bs, long long kv_rs,
                                        long long sc_bs, int g, void* stream) {
-  return dispatch<Entry::kGroup>(dtype, {q, k, v, ks, vs, out, batch, n_head, d_head,
+  return dispatch<Entry::kCross>(dtype, {q, k, v, ks, vs, out, batch, n_head, d_head,
                                          n_keys, kv_bs, kv_rs, sc_bs, nullptr, 0, g,
                                          static_cast<cudaStream_t>(stream)});
 }

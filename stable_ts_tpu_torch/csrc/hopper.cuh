@@ -1,7 +1,8 @@
 // Hopper building blocks of the bf16 flash kernels (flash_attn.cu,
-// flash_attn_bwd.cu): TMA tile loads completing on mbarriers, wgmma on
-// 128-byte (d_head 64) or 64-byte (d_head 32) swizzled shared-memory tiles,
-// and the host's tensor maps.
+// flash_attn_bwd.cu) and the bf16 vocab projection (vocab_proj.cu): TMA
+// tile loads completing on mbarriers, wgmma on 128-byte (d_head 64) or
+// 64-byte (d_head 32) swizzled shared-memory tiles, and the host's tensor
+// maps.
 //
 // One tile layout serves every product. A TMA box of 64 rows x d_head bf16
 // lands row r at r * ROW_BYTES (ROW_BYTES = 2 d_head), its 16-byte chunks
@@ -157,6 +158,51 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (m64nN, f32) {+}= A B for N = 8, 16, 32: both operands from descriptors,
+// K-major, as wgmma_ss_n64 (whose register lists these shorten)
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (m64nN) {+}= A B with both operands K-major tiles (N = 8, 16, 32, 64)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 8) {
+    wgmma_ss_n8(d, da, db, acc);
+  } else if constexpr (N == 16) {
+    wgmma_ss_n16(d, da, db, acc);
+  } else if constexpr (N == 32) {
+    wgmma_ss_n32(d, da, db, acc);
+  } else {
+    static_assert(N == 64, "wgmma_ss takes N = 8, 16, 32 or 64");
+    wgmma_ss_n64(d, da, db, acc);
+  }
+}
+
 // d (m64n64, f32) += A B: A from registers (the m64k16 bf16 fragment),
 // B from a descriptor over 16 rows of 64 N-values (MN-major: transpose-B).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -222,11 +268,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 3-D map over the bf16 (batch, rows, width) operand at ``base`` (row and
-// batch strides in elements) whose box is ROWS rows of the dh columns of one
-// head, swizzled as the wgmma descriptors expect. Rows past ``rows`` read as
-// zeros, per batch row. Returns a cudaError_t.
+// batch strides in elements) whose box is ``box_rows`` (at most 256) rows of
+// the dh columns of one head, swizzled as the wgmma descriptors expect. Rows
+// past ``rows``, and columns past ``width``, read as zeros, per batch row.
+// Returns a cudaError_t.
 inline int rows_map(CUtensorMap* map, const void* base, int batch, int rows, int width, int dh,
-                    long long row_stride, long long batch_stride) {
+                    long long row_stride, long long batch_stride, int box_rows = ROWS) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   constexpr long long E = sizeof(__nv_bfloat16);
@@ -236,7 +283,7 @@ inline int rows_map(CUtensorMap* map, const void* base, int batch, int rows, int
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_b), static_cast<cuuint64_t>(batch_b)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh), ROWS, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh), static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

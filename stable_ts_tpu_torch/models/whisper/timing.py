@@ -1,18 +1,23 @@
 """Word-level timestamps from cross-attention + DTW (port of
-stable_ts_tpu/models/whisper/timing.py, the legacy aligner with known
-alignment heads).
+stable_ts_tpu/models/whisper/timing.py, the legacy aligner with known or
+dynamically selected alignment heads).
 
-One teacher-forced decoder pass captures the alignment heads' raw QK
-(:func:`compute_qks_and_probs`); on the model's device the selected heads
-are soft-maxed over the window's real frames, normalized per frame column,
-reflect-continued at the crop boundary and median filtered
-(:func:`legacy_head_weights`); the DTW cost comes from the kernel
-(``ops/dtw.py``), and the host walks the traceback for the per-token jump
-frames. The word splitting and assembly helpers below are host code,
-carried over because their JAX module imports jax.
+One teacher-forced decoder pass captures raw cross-attention QK
+(:func:`compute_qks_and_probs`). With known heads it captures only those,
+and on the model's device they are soft-maxed over the window's real
+frames, normalized per frame column, reflect-continued at the crop
+boundary and median filtered (:func:`legacy_head_weights`). With no known
+heads, or when ``dynamic_heads`` asks for it, it captures every head; the
+frame axis is cropped on the device, downloaded in bf16 and widened on the
+host, where :func:`_dynamic_head_weights` picks each token's best-peaked
+heads (the reference's selection, NumPy as in the JAX package). Either way
+the DTW cost comes from the kernel (``ops/dtw.py``), and the host walks the
+traceback for the per-token jump frames. The word splitting and assembly
+helpers below are host code, carried over because their JAX module imports
+jax.
 
-Dynamic head selection and the 'new' aligner are not ported yet
-(ROADMAP.md) and raise ``NotImplementedError``.
+The 'new' aligner and ``extra_models`` are not ported yet (ROADMAP.md) and
+raise ``NotImplementedError``.
 """
 import string
 from dataclasses import dataclass
@@ -118,6 +123,65 @@ def legacy_head_weights(qks_sel: torch.Tensor, max_qk_len: int, sot_len: int,
     return median_filter(w, medfilt_width)
 
 
+def parse_dynamic_heads(dynamic_heads) -> Tuple[Optional[int], int]:
+    """Normalize the ``dynamic_heads`` spec to ``(count, iterations)``.
+
+    Accepts the reference's forms (timing.py:254-265): True -> 6 heads,
+    int -> that many heads, 'count' or 'count,iterations' strings. Count
+    is None when dynamic selection is off (falsy spec).
+    """
+    if not dynamic_heads:
+        return None, 1
+    if dynamic_heads is True:
+        return 6, 1
+    if isinstance(dynamic_heads, int):
+        return int(dynamic_heads), 1
+    parts = str(dynamic_heads).split(',')
+    return int(parts[0]), (int(parts[1]) if len(parts) > 1 else 1)
+
+
+def _dynamic_head_weights(qks: np.ndarray, sot_len: int, max_qk_len: int,
+                          qk_scale: float, medfilt_width: int,
+                          heads_count: int,
+                          jump_indices: Optional[np.ndarray]) -> np.ndarray:
+    """Reference's dynamic head selection (timing.py:87-103), NumPy host-side
+    on the cropped (L*H, T_text, max_qk_len) tensor."""
+    L, H, T, F = qks.shape
+    heads_count = min(heads_count, L * H)
+    w = qks.reshape(L * H, T, F)[:, sot_len:-1, :max_qk_len]
+    w = w * qk_scale
+    w = np.exp(w - w.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    if jump_indices is None:
+        peaks = w.argmax(-1, keepdims=True).astype(np.float64)  # (LH, T', 1)
+    else:
+        ji = np.pad(jump_indices, (0, 1), constant_values=max_qk_len)
+        peaks = (ji[:-1] + (ji[1:] - ji[:-1]) * 0.5)[None, :, None]
+    distances = np.abs(peaks - np.arange(w.shape[-1])[None, None, :]) / 1500
+    scores = (distances * w).sum(-1)  # (LH, T')
+    n_text = w.shape[1]
+    selected = np.empty((heads_count, n_text, w.shape[-1]), dtype=w.dtype)
+    for i in range(n_text):
+        head_idx = np.argsort(scores[:, i])[:heads_count]
+        selected[:, i] = w[head_idx, i]
+    std = selected.std(axis=-2, keepdims=True)
+    mean = selected.mean(axis=-2, keepdims=True)
+    # constant rows (e.g. one-token windows) have std 0: normalizing them
+    # would produce NaNs that poison the DTW cost matrix
+    selected = (selected - mean) / np.where(std > 0, std, 1.0)
+    return _np_median_filter(selected, medfilt_width)
+
+
+def _np_median_filter(x: np.ndarray, width: int) -> np.ndarray:
+    if width <= 1 or x.shape[-1] <= width // 2:
+        return x
+    pad = width // 2
+    padded = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(pad, pad)], mode='reflect')
+    windows = np.stack([padded[..., i:i + x.shape[-1]] for i in range(width)],
+                       axis=-1)
+    return np.median(windows, axis=-1)
+
+
 def matrix_to_jumps(matrix: torch.Tensor, m: Optional[int] = None) -> np.ndarray:
     """DTW over -matrix (device cost, host traceback) -> per-token jump
     frames; ``m`` bounds the walk to the first m frame columns."""
@@ -135,13 +199,14 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
                    alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
                    dynamic_heads=None, aligner='legacy',
                    extra_models=None) -> List[WordTimingRaw]:
-    """Align ``text_tokens`` to audio with the legacy aligner and known
-    alignment heads (timing.py:522-700); per-word raw timings."""
-    if aligner != 'legacy' or dynamic_heads or alignment_heads is None:
+    """Align ``text_tokens`` to audio with the legacy aligner
+    (timing.py:522-700); per-word raw timings. When no ``alignment_heads``
+    are given and ``dynamic_heads`` is unset, 6 heads are selected
+    dynamically per token (the reference's missing-heads fallback)."""
+    if aligner != 'legacy':
         raise NotImplementedError(
-            'stable_ts_tpu_torch aligns with the legacy aligner and known '
-            'alignment heads only; dynamic heads and the "new" aligner are '
-            'still to be ported (ROADMAP.md)')
+            'stable_ts_tpu_torch aligns with the legacy aligner only; the '
+            '"new" aligner is still to be ported (ROADMAP.md)')
     if extra_models:
         raise NotImplementedError('extra_models are still to be ported '
                                   '(ROADMAP.md)')
@@ -156,16 +221,38 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
 
     sot_len = len(tokenizer.sot_sequence)
     max_qk_len = round(num_samples / N_SAMPLES_PER_TOKEN)
-    capture_index, slots = build_head_capture_table(alignment_heads,
-                                                    dims.n_text_layer)
+    if dynamic_heads is None and alignment_heads is None:
+        dynamic_heads = True
+    dynamic_count, iterations = parse_dynamic_heads(dynamic_heads)
     with torch.inference_mode():
-        qks, text_token_probs, _ = compute_qks_and_probs(
-            model, dims, tokenizer, text_tokens, mel=mel,
-            audio_features=audio_features, capture_index=capture_index)
-        weights = legacy_head_weights(gather_captured_heads(qks, slots),
-                                      max_qk_len, sot_len, qk_scale,
-                                      medfilt_width)
-        jump_indices = matrix_to_jumps(weights.mean(dim=0), m=max_qk_len)
+        if dynamic_count:
+            qks, text_token_probs, _ = compute_qks_and_probs(
+                model, dims, tokenizer, text_tokens, mel=mel,
+                audio_features=audio_features)
+            # crop the frame axis on the device and download the crop in
+            # bf16 (the full capture is hundreds of MB at large-v3); the
+            # host widens it to f32, as the JAX package does
+            crop = qks[..., :max(max_qk_len, 1)].contiguous()
+            qks_np = crop.cpu().float().numpy()
+            jump_indices = None
+            # each pass after the first scores the heads against the
+            # midpoints of the previous pass's DTW jumps
+            for _ in range(iterations):
+                weights = _dynamic_head_weights(
+                    qks_np, sot_len, max_qk_len, qk_scale, medfilt_width,
+                    dynamic_count, jump_indices)
+                jump_indices = matrix_to_jumps(
+                    torch.from_numpy(weights.mean(axis=0)).to(qks.device))
+        else:
+            capture_index, slots = build_head_capture_table(alignment_heads,
+                                                            dims.n_text_layer)
+            qks, text_token_probs, _ = compute_qks_and_probs(
+                model, dims, tokenizer, text_tokens, mel=mel,
+                audio_features=audio_features, capture_index=capture_index)
+            weights = legacy_head_weights(gather_captured_heads(qks, slots),
+                                          max_qk_len, sot_len, qk_scale,
+                                          medfilt_width)
+            jump_indices = matrix_to_jumps(weights.mean(dim=0), m=max_qk_len)
 
     jump_times = jump_indices / TOKENS_PER_SECOND
     start_times = jump_times[word_boundaries[:-1]]

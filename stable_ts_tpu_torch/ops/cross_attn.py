@@ -6,11 +6,16 @@ all its branches: g = 1, one query row per window, and q_per_kv = g > 1,
 the g beams or best_of candidates of a window reading that window's K/V
 (rows b*g ... b*g + g - 1 read window b); float, int8 or (``bits=4``)
 packed int4 K/V. Each query attends keys j < s of the window's precomputed
-cross-attention K/V, the largest stream a decode step reads. The kernels
-read each K/V row once per block with wide loads and dequantize in
-registers with the per-position scales; the group entry applies each row
-to all g queries of its window (up to 8 per block), so the stream is read
-once per window, not per row.
+cross-attention K/V, the largest stream a decode step reads. Both entries
+run one kernel: the keys of a head are split in 8 chunks, one block each,
+the 8 blocks of a head one thread-block cluster; each block copies its
+chunk's K and V head slices into shared memory once, dequantizes in
+registers with the per-position scales and applies each row to all query
+rows of its window (up to 8 per block), so the stream is read once per
+window, not per row. The chunks agree on the global maximum through
+distributed shared memory before any weight is rounded, and the first
+block sums the chunks' partial outputs in a fixed order (no atomics:
+reruns are bit-identical). At most ``self_attn.MAX_KEYS_CROSS`` keys.
 
 As the TPU kernel does for its MXU (cross_attn.py:107,118-120,129), the
 query and the softmax weights (times the V scales) are rounded to bf16

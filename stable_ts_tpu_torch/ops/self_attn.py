@@ -23,7 +23,9 @@ import torch
 from .. import _build
 
 MAX_KEYS = 8192         # scores of one (row, head) in shared memory
-MAX_KEYS_GROUP = 6144   # 8 query rows' scores per block (cross group entry)
+# the cross entries hold their key chunk's K and V head slices and 8 query
+# rows' scores in shared memory: twice Whisper's 1500 frames, f32 included
+MAX_KEYS_CROSS = 3072
 
 
 def _by_ancestor(t, anc, g: int, n: int):
@@ -109,7 +111,7 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
             or not 1 <= n_keys <= k.shape[1]):
         raise ValueError(f'decode kernel: cache {tuple(k.shape)} for query '
                          f'{tuple(q.shape)}, {n_keys} keys, g={g}')
-    limit = MAX_KEYS_GROUP if group else MAX_KEYS
+    limit = MAX_KEYS_CROSS if entry.startswith('cross') else MAX_KEYS
     if n_keys > limit:
         raise ValueError(f'{entry} holds at most {limit} keys, got {n_keys}')
     if g < 1 or (anc is not None and b % g):

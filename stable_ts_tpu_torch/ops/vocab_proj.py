@@ -4,8 +4,11 @@
 Replaces stable_ts_tpu/ops/vocab_proj.py:_kernel (``vocab_logits_kernel``):
 the tied-embedding logits ``x @ emb^T`` of a decode step, x cast to the
 embedding's dtype, products summed in f32, f32 logits. The kernel reads
-the (V, d) table once, as it is stored; no transposed or f32 copy of it is
-made. :meth:`~..models.whisper.model.TextDecoder.vocab_logits` sends it the
+the (V, d) table from device memory once, as it is stored, for any M up to
+``MAX_ROWS``; no transposed or f32 copy of it is made. A bf16 table goes to
+the tensor-core kernel (wgmma tiles fed by TMA), an f32 one to the
+CUDA-core kernel: the dtype selects, and neither falls back to the other.
+:meth:`~..models.whisper.model.TextDecoder.vocab_logits` sends it the
 shapes stable_ts_tpu sends its kernel (model.py:150-153): 2-D x of at most
 ``MAX_ROWS`` rows, a vocabulary of at least ``MIN_VOCAB`` rows.
 """
@@ -33,6 +36,8 @@ def vocab_proj(x, emb) -> torch.Tensor:
         raise ValueError(f'vocab_proj: x {tuple(x.shape)} against emb '
                          f'{tuple(emb.shape)}; x must be 2-D (M, d)')
     m, d = x.shape
+    if not 1 <= m <= MAX_ROWS:
+        raise ValueError(f'vocab_proj takes 1 to {MAX_ROWS} rows, got {m}')
     v = emb.shape[0]
     if emb.dtype not in (torch.bfloat16, torch.float32) or not emb.is_contiguous():
         raise TypeError('vocab_proj: emb must be contiguous bf16 or f32')
@@ -42,6 +47,8 @@ def vocab_proj(x, emb) -> torch.Tensor:
     if x.device != emb.device:
         raise ValueError('vocab_proj: operands must share a device')
     x = x.to(emb.dtype).contiguous()
+    if x.data_ptr() % 16:   # TMA reads x from a 16-byte aligned base
+        x = x.clone()
     out = torch.empty((m, v), dtype=torch.float32, device=x.device)
     _build.check(_build.lib().vocab_proj(
         x.data_ptr(), emb.data_ptr(), out.data_ptr(), _build.dtype_code(emb.dtype),

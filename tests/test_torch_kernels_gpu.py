@@ -290,6 +290,21 @@ def test_vocab_kernel_matches_twin(cuda, dtype, m, v, d):
     assert _rel(got, vocab_proj_ref(x, emb)) <= 1e-4
 
 
+@pytest.mark.parametrize('m', [1, 5, 16, 64, 100, 200, 256])
+def test_vocab_wgmma_kernel_rows_and_reruns(cuda, m):
+    """The bf16 tensor-core kernel at every N variant (8, 16, 32, 64 and two to
+    four N = 64 tiles over one embedding stage): within 1e-4 of the largest
+    logit, and a rerun equal bit for bit (fixed-order sums, no atomics)."""
+    from stable_ts_tpu_torch.ops.vocab_proj import vocab_proj, vocab_proj_ref
+    x = _randn(cuda, m, 1280, dtype=torch.bfloat16)
+    emb = (_randn(cuda, 51866, 1280) * 0.02).to(torch.bfloat16)
+    got = vocab_proj(x, emb)
+    again = vocab_proj(x, emb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, vocab_proj_ref(x, emb)) <= 1e-4
+
+
 def test_vocab_kernel_raises_outside_its_contract(cuda):
     from stable_ts_tpu_torch.ops.vocab_proj import vocab_proj
     emb = _randn(cuda, 2048, 64)
@@ -299,6 +314,8 @@ def test_vocab_kernel_raises_outside_its_contract(cuda):
         vocab_proj(_randn(cuda, 1, 64), emb.half())
     with pytest.raises(ValueError, match='16-byte'):
         vocab_proj(_randn(cuda, 1, 6), _randn(cuda, 2048, 6))
+    with pytest.raises(ValueError, match='256 rows'):
+        vocab_proj(_randn(cuda, 257, 64), emb)
 
 
 def _flash_views(gen, b, t, s, n_head, dh, dtype):
@@ -396,3 +413,69 @@ def test_flash_function_cuda_grads_match_cpu(cuda, dtype, tol, expanded):
         grads.append([x.grad.cpu() for x in leaves])
     for name, got, ref in zip('qkv', *grads):
         assert _rel(got, ref) <= tol, name
+
+
+def _cross_inputs(gen, kind, layers, windows, s, d):
+    """Cross K/V (L, B, 2, S, d) of one kind with its (L, B, 2, S) scales,
+    and the unpacked values the twin reads."""
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops.cross_attn import pack_int4
+    raw = _randn(gen, layers, windows, 2, s, d)
+    if kind == 'int4':
+        vals, sc = quantize_rows(raw, bits=4)
+        return pack_int4(vals), vals, sc, 4
+    if kind == 'int8':
+        vals, sc = quantize_rows(raw)
+        return vals, vals, sc, 8
+    kv = raw.to(torch.bfloat16 if kind == 'bf16' else torch.float32)
+    return kv, kv, torch.ones((layers, windows, 2, s), device='cuda'), 8
+
+
+@pytest.mark.parametrize('kind', ['int8', 'int4', 'bf16', 'f32'])
+@pytest.mark.parametrize('g', [1, 5, 8, 9])
+@pytest.mark.parametrize('s', [1500, 1499, 10, 5])
+def test_cross_cluster_kernel_matches_twin(cuda, kind, g, s):
+    """Both cross entries run one kernel whose 8 key chunks of a head share a
+    thread-block cluster: ragged and short key counts (5 keys leave 3 of the
+    8 chunks empty), g query rows over one or two blocks of 8, every K/V
+    type. Within 1e-3 of the largest output (the same bf16 rounding points
+    as the twin; a weight may round to the neighbouring bf16), and a rerun
+    equal bit for bit (the chunks combine in a fixed order, no atomics)."""
+    from stable_ts_tpu_torch.ops.cross_attn import cross_attn_decode, cross_attn_decode_ref
+    d, n_head, windows = 1280, 20, 2
+    kv, vals, sc, bits = _cross_inputs(cuda, kind, 2, windows, 1500, d)
+    q = _randn(cuda, windows * g, d) * 0.125
+    name = ('cross_attn_decode_group' if g > 1 else 'cross_attn_decode') + (
+        '_int4' if bits == 4 else '')
+    before = _build.launches[name]
+    got = cross_attn_decode(q, kv, sc, 1, s, n_head, q_per_kv=g, bits=bits)
+    again = cross_attn_decode(q, kv, sc, 1, s, n_head, q_per_kv=g, bits=bits)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 2
+    assert torch.equal(got, again)
+    ref = cross_attn_decode_ref(q, vals[1, :, 0], vals[1, :, 1], sc[1, :, 0],
+                                sc[1, :, 1], s, n_head, q_per_kv=g)
+    assert _rel(got, ref) <= 1e-3
+
+
+@pytest.mark.parametrize('kind', ['int8', 'int4', 'bf16', 'f32'])
+def test_cross_cluster_kernel_d_head_32(cuda, kind):
+    from stable_ts_tpu_torch.ops.cross_attn import cross_attn_decode, cross_attn_decode_ref
+    d, n_head = 128, 4
+    kv, vals, sc, bits = _cross_inputs(cuda, kind, 1, 3, 300, d)
+    for g in (1, 3):
+        q = _randn(cuda, 3 * g, d) * 0.18
+        got = cross_attn_decode(q, kv, sc, 0, 299, n_head, q_per_kv=g, bits=bits)
+        ref = cross_attn_decode_ref(q, vals[0, :, 0], vals[0, :, 1], sc[0, :, 0],
+                                    sc[0, :, 1], 299, n_head, q_per_kv=g)
+        assert _rel(got, ref) <= 1e-3
+
+
+def test_cross_kernel_raises_beyond_its_key_limit(cuda):
+    from stable_ts_tpu_torch.ops.cross_attn import cross_attn_decode
+    from stable_ts_tpu_torch.ops.self_attn import MAX_KEYS_CROSS
+    d, n_head = 128, 2
+    kv = torch.zeros((1, 1, 2, MAX_KEYS_CROSS + 1, d), device='cuda')
+    sc = torch.ones((1, 1, 2, MAX_KEYS_CROSS + 1), device='cuda')
+    with pytest.raises(ValueError, match='at most'):
+        cross_attn_decode(_randn(cuda, 1, d), kv, sc, 0, MAX_KEYS_CROSS + 1, n_head)

@@ -10,8 +10,13 @@ interpret mode (STABLE_TS_TPU_EPI); the port's greedy loop always takes
 the epilogue. Text and word-level SRT bytes must be equal, and every
 word's start and end within 0.021 s (one 20 ms frame plus rounding). The
 same holds for a ``dq`` model (int8 weights) on packed int4 cross K/V.
-A fresh interpreter that transcribes and takes a train step with the port
-loads neither jax, nor optax, nor any module of stable_ts_tpu."""
+The transcribe options that change the seek loop, the prompt or the
+decoding (the silence mask on greedy and beam steps, a prompt, resets,
+skips, clips, resuming, no regrouping, the voice band, translation) give
+equal text and SRT bytes too. A fresh interpreter that transcribes and
+takes a train step with the port loads neither jax, nor optax, nor any
+module of stable_ts_tpu; importing the port tunes the host allocator, as
+importing stable_ts_tpu does."""
 import os
 import subprocess
 import sys
@@ -29,6 +34,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _audio(seconds=40, seed=21):
     return (np.random.default_rng(seed).standard_normal(16000 * seconds)
             * 0.1).astype(np.float32)
+
+
+def _gapped_audio():
+    """40 s of seeded noise with two silent gaps, 8-12 s and 24-29 s."""
+    audio = _audio(40)
+    audio[8 * 16000:12 * 16000] = 0
+    audio[24 * 16000:29 * 16000] = 0
+    return audio
 
 
 @pytest.mark.parametrize('epilogue', ['0', 'interpret'], ids=['epi_off', 'epi_interpret'])
@@ -83,6 +96,46 @@ def test_dq_int4_transcribe_matches_jax(epilogue, monkeypatch):
         assert abs(a.start - b.start) <= 0.021 and abs(a.end - b.end) <= 0.021
 
 
+@pytest.mark.parametrize('case,gapped,options', [
+    ('suppress_ts_greedy', True, dict(suppress_ts_tokens=True)),
+    ('suppress_ts_beam3', True, dict(suppress_ts_tokens=True, beam_size=3)),
+    ('initial_prompt', False, dict(initial_prompt='Hello there, friend.')),
+    ('no_condition', True, dict(condition_on_previous_text=False)),
+    ('nonspeech_skip', True, dict(nonspeech_skip=2.0)),
+    ('avg_prob_threshold', False, dict(avg_prob_threshold=0.5)),
+    ('clip_timestamps', True, dict(clip_timestamps='3,15,20')),
+    ('resume', False, None),
+    ('regroup_false', False, dict(regroup=False)),
+    ('only_voice_freq', False, dict(only_voice_freq=True)),
+    ('translate', False, dict(task='translate')),
+], ids=lambda v: v if isinstance(v, str) else '')
+def test_transcribe_options_match_jax(case, gapped, options, monkeypatch, tmp_path):
+    """Each option on the tiny model (known heads, JAX's epilogue off), on
+    20 s of noise or on 40 s with two silent gaps: text and word-level SRT
+    bytes equal. ``resume`` continues, less its last segment, a result that
+    JAX wrote for the first 12 s."""
+    monkeypatch.setenv('STABLE_TS_TPU_CROSS', 'interpret')
+    monkeypatch.setenv('STABLE_TS_TPU_SELFKV', '1')
+    monkeypatch.setenv('STABLE_TS_TPU_EPI', '0')
+    from stable_ts_tpu.loaders import load_test_model as load_jax
+    from stable_ts_tpu_torch.loaders import from_jax
+    jax_model = load_jax(alignment_heads=HEADS)
+    port_model = from_jax(jax_model, device='cpu')
+    audio = _gapped_audio() if gapped else _audio(20)
+    kw = dict(language='en', temperature=0, verbose=None)
+    if case == 'resume':
+        partial = jax_model.transcribe(audio[:12 * 16000], **kw)
+        path = str(tmp_path / 'partial.json')
+        partial.save_as_json(path)
+        assert len(partial.segments) > 1
+        options = dict(resume=path + '+')
+    kw.update(options)
+    ref = jax_model.transcribe(audio, **kw)
+    got = port_model.transcribe(audio, **kw)
+    assert got.text == ref.text and len(ref.segments) > 0
+    assert got.to_srt_vtt(word_level=True) == ref.to_srt_vtt(word_level=True)
+
+
 def test_fresh_interpreter_never_imports_jax(tmp_path):
     script = textwrap.dedent(f"""
         import sys
@@ -128,6 +181,36 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
                           text=True, cwd=tmp_path, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'NO_JAX_OK' in proc.stdout
+
+
+def test_import_tunes_the_host_allocator(tmp_path):
+    """A fresh interpreter that imports the port looks up glibc's mallopt
+    (seen through Python's audit hook on ctypes) and, with the threshold
+    raised to 256 MB, a fresh 64 MB array comes from the heap, where glibc's
+    default (at most 32 MB) would map it on its own; as importing
+    stable_ts_tpu does."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        looked_up = []
+        sys.addaudithook(lambda event, args: looked_up.append(args[1])
+                         if event == 'ctypes.dlsym' else None)
+        import stable_ts_tpu_torch
+        import numpy as np
+        assert 'mallopt' in looked_up, looked_up
+        a = np.ones(64 << 20, np.uint8)
+        heap = [line.split()[0] for line in open('/proc/self/maps')
+                if line.rstrip().endswith('[heap]')]
+        lo, hi = (int(x, 16) for x in heap[0].split('-'))
+        assert lo <= a.ctypes.data < hi, (hex(a.ctypes.data), heap)
+        print('TUNED_OK')
+    """)
+    env = {k: v for k, v in os.environ.items() if not k.startswith('MALLOC_')
+           and k != 'STABLE_TS_TPU_NO_MALLOC_TUNE'}
+    proc = subprocess.run([sys.executable, '-c', script], capture_output=True,
+                          text=True, cwd=tmp_path, env=env, timeout=60)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'TUNED_OK' in proc.stdout
 
 
 def test_cuda_without_a_gpu_raises():

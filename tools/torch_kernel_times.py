@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Device times of stable_ts_tpu_torch's cross-attention decode entries and
+vocab projection at Whisper large-v3's decode shapes, for the package found
+under ROOT (default: this checkout).
+
+    python3 tools/torch_kernel_times.py [ROOT ...]
+
+Each ROOT is timed in its own process, in the order given, so two trees of
+the package (an older checkout unpacked beside this one, and this one) can
+be held against each other on the same card in one run: list them as A B B
+A. Each process builds ROOT's kernels and prints one JSON line: the card's
+name and power limit, then for each entry its device time alone (the
+profiler's kernel durations, ``chip_smoke.device_ms``) and its CUDA-event
+time (``chip_smoke.cuda_ms``, which also reads the wrapper's host time),
+both in ms per call. Needs one CUDA GPU.
+"""
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def time_root(root: str) -> dict:
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    sys.path.insert(0, root)
+    import torch
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops import cross_attn, vocab_proj
+    import stable_ts_tpu_torch
+    package = os.path.dirname(stable_ts_tpu_torch.__file__)
+    if package != os.path.join(root, 'stable_ts_tpu_torch'):
+        raise SystemExit(f'torch_kernel_times: imported {package}, not the one under {root}')
+    if not torch.cuda.is_available():
+        raise SystemExit('torch_kernel_times: no CUDA device')
+    gen = torch.Generator(device='cuda').manual_seed(1234)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda')
+
+    def both(fn, iters):
+        return dict(device_ms=chip_smoke.device_ms(fn, iters=iters),
+                    event_ms=chip_smoke.cuda_ms(fn, iters=iters))
+
+    layers, d, h, s = 32, 1280, 20, 1500
+    times = {}
+    kv8, sc8 = quantize_rows(randn(layers, 1, 2, s, d))
+    vals4, sc4 = quantize_rows(randn(layers, 1, 2, s, d), bits=4)
+    kv4 = cross_attn.pack_int4(vals4)
+    for g in (1, 5):
+        q = randn(g, d) * (d // h) ** -0.5
+        times[f'cross int8 g={g}'] = both(
+            lambda: cross_attn.cross_attn_decode(q, kv8, sc8, 7, s, h, q_per_kv=g), 200)
+        times[f'cross int4 g={g}'] = both(
+            lambda: cross_attn.cross_attn_decode(q, kv4, sc4, 7, s, h, q_per_kv=g, bits=4),
+            200)
+    emb = (randn(51866, d) * 0.02).to(torch.bfloat16)
+    for m in (1, 5, 16, 64, 256):
+        x = randn(m, d).to(torch.bfloat16)
+        times[f'vocab_proj M={m}'] = both(lambda: vocab_proj.vocab_proj(x, emb), 50)
+        times[f'torch.mm M={m}'] = both(
+            lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), 50)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    return dict(root=root, package=package, card=smi, times=times)
+
+
+def main(argv) -> int:
+    if len(argv) == 1 and argv[0].startswith('--one='):
+        print(json.dumps(time_root(argv[0][len('--one='):])), flush=True)
+        return 0
+    for root in argv or [HERE]:
+        # the children run from HERE: resolve ROOT against the caller's directory
+        root = os.path.abspath(root)
+        if not os.path.isdir(os.path.join(root, 'stable_ts_tpu_torch')):
+            raise SystemExit(f'torch_kernel_times: no stable_ts_tpu_torch under {root}')
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), f'--one={root}'],
+                              cwd=HERE)
+        if proc.returncode != 0:
+            return proc.returncode
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))
