@@ -28,8 +28,11 @@ after it; the script fails unless each path launched the kernels it runs,
 all thirteen entries among them. A tiny f32 model also takes three train
 steps on the CPU (twins) and on the card (kernels), which must agree, and
 transcribes alike through both (with known heads, quantized, and with no
-heads). The two kernels redesigned last (the cross entries on a
-thread-block cluster, vocab_proj on wgmma) must give bit-identical reruns.
+heads). The fixed-order kernels (the cross entries on a thread-block
+cluster, vocab_proj and bf16 woq_matmul on wgmma, the self and beam entries
+with their cache slice in flight) must give bit-identical reruns. One
+line gives the device time of an empty launch, the floor under every
+decode kernel.
 
     python3 chip_smoke.py        # needs one CUDA GPU; exits non-zero on any failure
 
@@ -82,26 +85,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, attempts: int = 3) -> float:
     """Mean device time of fn() in ms: the durations of the CUDA kernels
     (and device memsets) it ran, summed by torch.profiler over ``iters``
     calls after warm-up. Unlike cuda_ms, the host's time between launches
-    (the wrapper's checks, an autograd graph walk) does not count."""
+    (the wrapper's checks, an autograd graph walk) does not count. A
+    profiler session that hands back no kernel at all (seen once, for the
+    empty kernel) is repeated, up to ``attempts`` sessions."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    if us <= 0:
-        raise AssertionError('torch.profiler recorded no device time')
-    return us / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if us > 0:
+            return us / iters / 1e3
+    raise AssertionError(f'torch.profiler recorded no device time in {attempts} sessions')
 
 
 def profiled(fn):
@@ -132,6 +138,19 @@ def profiled(fn):
 def both_ms(fn, iters: int = 20, warmup: int = 3) -> tuple:
     """(device time alone, CUDA-event time) of fn() in ms per call."""
     return device_ms(fn, iters, warmup), cuda_ms(fn, iters, warmup)
+
+
+def empty_launch_ms(blocks: int = 20, threads: int = 128) -> float:
+    """Device time of one launch of the library's empty kernel (a decode
+    step's grid: a block per head), the floor under every short kernel."""
+    import torch
+    from stable_ts_tpu_torch import _build
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        _build.check(lib.empty_launch(blocks, threads, stream), 'empty_launch')
+    return device_ms(launch, iters=200)
 
 
 def rerun_identical(name: str, fn, got, what: str) -> None:
@@ -227,9 +246,13 @@ def kernel_checks(torch, results: dict) -> None:
         flash.append(numbers)
     results['flash_attn'] = flash[0]
 
-    # D, self entry: one layer of the (32, 1, 256, 1280) int8 row cache, pos 200
+    # D, self entry: one layer of the (32, 1, 256, 1280) int8 row cache, pos
+    # 200; bf16 and f32 caches beside it with PyTorch's fused attention on
+    # the same keys (for the f32 cache the same function; for bf16 the query
+    # is rounded to bf16 first, so a yardstick)
     layers, ctx, pos = 32, 256, 200
     for what, cdtype, tol in (('int8 cache (32,1,256,1280) pos 200', torch.int8, 1e-4),
+                              ('bf16 cache (32,1,256,1280) pos 200', torch.bfloat16, 1e-4),
                               ('f32 cache (32,1,256,1280) pos 200', torch.float32, 1e-4)):
         raw = randn(layers, 1, ctx, d)
         raw_v = randn(layers, 1, ctx, d)
@@ -238,7 +261,7 @@ def kernel_checks(torch, results: dict) -> None:
             kc, ks = quantize_rows(raw)
             vc, vs = quantize_rows(raw_v)
         else:
-            kc, vc, ks, vs = raw, raw_v, None, None
+            kc, vc, ks, vs = raw.to(cdtype), raw_v.to(cdtype), None, None
         q = randn(1, d) * scale
         lay = 5
         args = (q, kc[lay], vc[lay], None if ks is None else ks[lay],
@@ -247,10 +270,22 @@ def kernel_checks(torch, results: dict) -> None:
         ref = self_attn.self_attn_decode_ref(*args)
         torch.cuda.synchronize()
         err = check('self_attn_decode', got, ref, tol, what)
+        rerun_identical('self_attn_decode', lambda: self_attn.self_attn_decode(*args), got,
+                        what)
         ms, ev = both_ms(lambda: self_attn.self_attn_decode(*args), iters=200)
         plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args), iters=200)
+        extra = ''
+        if cdtype != torch.int8:
+            n = pos + 1
+            qh = q.to(cdtype).view(1, 1, h, d // h).transpose(1, 2)
+            kh, vh = (c[lay, :, :n].view(1, n, h, d // h).transpose(1, 2) for c in (kc, vc))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0),
+                            iters=200)
+            label = ('scaled_dot_product_attention' if cdtype == torch.float32
+                     else 'scaled_dot_product_attention on a bf16 query (yardstick)')
+            extra = f', {label} {lib:.4f} ms'
         log(f'[kernel] self_attn_decode {what}: device kernel {ms:.4f} ms, twin '
-            f'{plain:.4f} ms; events {ev:.4f} ms')
+            f'{plain:.4f} ms{extra}; events {ev:.4f} ms')
         if cdtype == torch.int8:
             # keys 0..pos of one layer's K and V rows and their scales
             n = pos + 1
@@ -354,6 +389,9 @@ def kernel_checks(torch, results: dict) -> None:
     torch.cuda.synchronize()
     what = 'int8 cache (32,5,256,1280) pos 200, random anc'
     err = check('self_attn_decode_beam', got, ref, 1e-4, what)
+    rerun_identical('self_attn_decode_beam',
+                    lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=rows), got,
+                    what)
     ms, ev = both_ms(lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=rows),
                      iters=200)
     plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args, anc=anc,
@@ -367,6 +405,10 @@ def kernel_checks(torch, results: dict) -> None:
     results['self_attn_decode_beam'] = entry(
         err, ms, plain, 2 * reached * (d + 4) + nbytes(anc[:, :n], q, got),
         4 * rows * n * d, 'f32')
+
+    floor = empty_launch_ms()
+    log(f'[kernel] empty launch (libkernels.so empty_launch, 20 blocks of 128 threads): '
+        f'device {floor:.4f} ms, the floor under every decode kernel')
 
     epilogue_checks(torch, results, randn, gen)
     int4_cross_checks(torch, results, randn)
@@ -460,12 +502,17 @@ def int4_cross_checks(torch, results: dict, randn) -> None:
 def woq_checks(torch, results: dict, randn) -> None:
     """The weight-only int8 matmul at the dq paths' shapes: M = 1 and 5
     (decode), 230 (the timing pass), 1500 (the encoder) for each (K, N) of
-    the decoder's fused qkv, out, fc1 and fc2 linears, bf16 x; one f32 x.
-    The kernel's f32 output (before the wrapper's cast) against the twin's:
-    the same exact products summed in another order."""
+    the decoder's fused qkv, out, fc1 and fc2 linears, bf16 x (the
+    tensor-core kernel); one f32 x (CUDA cores). The kernel's f32 output
+    (before the wrapper's cast) against the twin's within 1e-5 of its
+    largest value: the same exact products summed in another order; bf16
+    reruns bit-identical. Beside each bf16 shape, as yardsticks (not the
+    same function): F.linear on the weight pre-widened to bf16 (no scales,
+    bf16 output) and torch._weight_int8pack_mm (bf16 scales and output)."""
+    import torch.nn.functional as F
     from stable_ts_tpu_torch.models.whisper.quantization import quantize_weight
     from stable_ts_tpu_torch.ops import woq_matmul as woq
-    shapes = [(m, k, n, torch.bfloat16, 1e-3) for m in (1, 5, 230, 1500)
+    shapes = [(m, k, n, torch.bfloat16, 1e-5) for m in (1, 5, 230, 1500)
               for k, n in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))]
     shapes.append((230, 1280, 5120, torch.float32, 1e-5))
     weights = {}
@@ -486,12 +533,14 @@ def woq_checks(torch, results: dict, randn) -> None:
                         'bf16' if dtype == torch.bfloat16 else 'f32')
         extra = ''
         if dtype == torch.bfloat16:
-            # the nearest library call, not the same function: its scales
-            # are in x's dtype and its output is bf16
+            rerun_identical('woq_matmul', lambda: woq._woq_cuda(x, q, scale), got, what)
+            w16 = q.to(dtype)
+            linear = device_ms(lambda: F.linear(x, w16), iters=iters)
             scale_bf16 = scale.to(dtype)
             near = device_ms(lambda: torch._weight_int8pack_mm(x, q, scale_bf16),
                              iters=iters)
-            extra = f', torch._weight_int8pack_mm (bf16 scales) {near:.4f} ms'
+            extra = (f', yardsticks: F.linear on the bf16-widened weight {linear:.4f} ms, '
+                     f'torch._weight_int8pack_mm (bf16 scales) {near:.4f} ms')
         log(f'[kernel] woq_matmul {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms'
             f'{extra}, bound {numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]}); events '
             f'{ev:.4f} ms')

@@ -20,15 +20,32 @@
 // dequant scale applied to the logit and weight rows, and never write a
 // dequantized copy or the logits to device memory. Softmax runs in f32.
 //
-// decode_attn_kernel (the self and beam entries): one block per (head,
-// batch row); 128 threads:
-//   1. each thread scores key rows j = tid, tid + 128, ... (q . k_j) * ks[j];
-//   2. block max / sum -> unnormalized weights p_j * vs[j] in shared memory;
-//   3. V: the head's d_head slice of a row is CPR 16-byte chunks; 128 / CPR
-//      row groups each accumulate a partial sum over their rows, reduced in
-//      shared memory; out = sum / l.
-// The beam variant takes key j's row from (r / g) * g + anc[r, j] (a
-// 4-byte read per key beside the 64-byte int8 head slice).
+// decode_attn_kernel (the self and beam entries; replaces
+// stable_ts_tpu/ops/self_attn.py:68 _kernel and :132 _kernel_beam): one
+// block of 8 warps per (head, batch row). A step's head slice is small (at
+// pos 200 of the int8 cache, 201 keys x 64 bytes of K and of V, 26 KB), so
+// what bounds it is latency, not bytes: the number of dependent rounds to
+// device memory, of block barriers and of serial passes. So:
+//   1. each warp owns a contiguous eighth of the keys and issues 16-byte
+//      cp.async copies of their whole K and V head slices (and 4-byte copies
+//      of their scales) into its own shared memory at once: one round to
+//      device memory, q loading into registers meanwhile. A warp's keys come
+//      in chunks of 4 KB of K (RowChunk: 64 int8 keys at d_head 64, so the
+//      whole 448-key slice of a decode is in flight at once),
+//      double-buffered when an eighth holds more (float caches past 128 or
+//      256 keys, up to MAX_KEYS);
+//   2. the beam entry first reads its chunk's ancestry (4 bytes a key) in
+//      one round, then copies each key from row (r / g) * g + anc[r, j];
+//   3. each warp scores its keys (16 bytes a lane, a key row over 4-16
+//      lanes, reduced by shuffles), keeps a running maximum, exp sum and
+//      weighted V sum, rescaled when a chunk raises the maximum, and forms
+//      each weight inside the V pass: no block-wide reduction, only warp
+//      barriers, and int8 widens by a byte permute and an add a value (no
+//      conversion instructions), one 4-byte word at a time;
+//   4. one block barrier, then the 8 warps' (max, sum, o) merge in warp
+//      order: no atomics, reruns are bit-identical.
+// All math is f32, as the XLA cache path computes it; the twin's single
+// softmax and this per-warp one differ only in f32 rounding.
 //
 // cross_cluster_kernel (both cross entries, every K/V type): a block per
 // (chunk of keys, head, window and chunk of up to GMAX of its g query rows),
@@ -78,86 +95,6 @@ constexpr int DEC_THREADS = 128;
 constexpr int GMAX = 8;     // query rows per block of the cross kernel
 constexpr int CLUSTER = 8;  // key chunks of one head: the largest portable cluster
 
-template <typename T, int DH, bool BEAM>
-__global__ void __launch_bounds__(DEC_THREADS)
-decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ ks,
-                   const float* __restrict__ vs, float* __restrict__ out,
-                   int n_head, int n_keys, long long kv_bs, long long kv_rs,
-                   long long sc_bs, const int* __restrict__ anc,
-                   long long anc_rs, int g) {
-  constexpr int VN = Vec16<T>::N;        // elements per 16-byte chunk
-  constexpr int CPR = DH / VN;           // chunks per head row
-  constexpr int GROUPS = DEC_THREADS / CPR;
-  static_assert(DH % VN == 0, "d_head must fill whole 16-byte chunks");
-
-  extern __shared__ float p[];           // n_keys scores, then weights
-  __shared__ float qs[DH];
-  __shared__ float part[GROUPS][DH];
-  __shared__ float scratch[DEC_THREADS / 32];
-
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int d = n_head * DH;
-  const int* ancb = BEAM ? anc + b * anc_rs : nullptr;
-  const int group0 = BEAM ? (b / g) * g : b;
-  // the batch row that holds key j
-  auto src = [&](int j) -> long long { return BEAM ? group0 + ancb[j] : b; };
-
-  if (tid < DH) qs[tid] = q[(long long)b * d + h * DH + tid];
-  __syncthreads();
-
-  // 1. scores
-  float lmax = -INFINITY;
-  for (int j = tid; j < n_keys; j += DEC_THREADS) {
-    const long long r = src(j);
-    const T* row = at(k + r * kv_bs + j * kv_rs, h * DH);
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPR; ++c) {
-      float kv[VN];
-      load16(at(row, c * VN), kv);
-#pragma unroll
-      for (int e = 0; e < VN; ++e) acc = fmaf(qs[c * VN + e], kv[e], acc);
-    }
-    const float s = ks ? acc * ks[r * sc_bs + j] : acc;
-    p[j] = s;
-    lmax = fmaxf(lmax, s);
-  }
-  const float m = block_reduce<DEC_THREADS>(lmax, -INFINITY, MaxOp(), scratch);
-
-  // 2. weights
-  float lsum = 0.f;
-  for (int j = tid; j < n_keys; j += DEC_THREADS) {
-    const float e = expf(p[j] - m);
-    lsum += e;
-    p[j] = vs ? e * vs[src(j) * sc_bs + j] : e;
-  }
-  const float l = block_reduce<DEC_THREADS>(lsum, 0.f, SumOp(), scratch);
-
-  // 3. weighted sum of V rows
-  const int chunk = tid % CPR, group = tid / CPR;
-  float acc[VN];
-#pragma unroll
-  for (int e = 0; e < VN; ++e) acc[e] = 0.f;
-  for (int j = group; j < n_keys; j += GROUPS) {
-    float vv[VN];
-    load16(at(v + src(j) * kv_bs + j * kv_rs, h * DH + chunk * VN), vv);
-    const float w = p[j];
-#pragma unroll
-    for (int e = 0; e < VN; ++e) acc[e] = fmaf(w, vv[e], acc[e]);
-  }
-#pragma unroll
-  for (int e = 0; e < VN; ++e) part[group][chunk * VN + e] = acc[e];
-  __syncthreads();
-  if (tid < DH) {
-    float o = 0.f;
-    for (int gi = 0; gi < GROUPS; ++gi) o += part[gi][tid];
-    out[(long long)b * d + h * DH + tid] = o / l;
-  }
-}
-
-// -- the cross entries: keys split across a thread-block cluster ---------------------
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -166,6 +103,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 // wait until at most PENDING of this thread's committed groups are in flight
 template <int PENDING>
@@ -180,6 +123,264 @@ struct Slice {
 };
 
 constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int ROW_THREADS = 256;   // the self and beam entries: 8 warps a (head, row)
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+
+// -- the self and beam entries: each warp an eighth of the keys, in flight at once ---
+
+// keys of one chunk buffer of a warp: 4 KB of K head slices (and 4 of V)
+template <typename T, int DH>
+struct RowChunk {
+  static constexpr int KEYS = 4096 / Slice<T, DH>::BYTES;
+};
+
+// The 16 bytes of T at p (16-byte aligned): s + their dot product with qv,
+// and acc + w times them. int8 widens exactly without a conversion
+// instruction (those issue at a quarter of the FMA rate), one 4-byte word
+// at a time: each byte, biased by 128, becomes the low mantissa byte of
+// 2^23, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ float widen_i8(uint32_t u, int b) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u | b)) - 8388736.f;
+}
+
+template <typename T, int VN>
+__device__ __forceinline__ float dot16(const T* p, const float (&qv)[VN], float s) {
+  if constexpr (sizeof(T) == 1 && Pack<T>::V == 1) {
+    // four partial sums, one a word: a chain of 4 FMAs, not 16
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float part[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+      part[i] = qv[4 * i] * widen_i8(u, 0);
+#pragma unroll
+      for (int b = 1; b < 4; ++b) part[i] = fmaf(qv[4 * i + b], widen_i8(u, b), part[i]);
+    }
+    s += (part[0] + part[1]) + (part[2] + part[3]);
+  } else {
+    float kv[VN];
+    load16(p, kv);
+#pragma unroll
+    for (int e = 0; e < VN; ++e) s = fmaf(qv[e], kv[e], s);
+  }
+  return s;
+}
+
+template <typename T, int VN>
+__device__ __forceinline__ void axpy16(const T* p, float w, float (&acc)[VN]) {
+  if constexpr (sizeof(T) == 1 && Pack<T>::V == 1) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t wd[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = wd[i] ^ 0x80808080u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[4 * i + b] = fmaf(w, widen_i8(u, b), acc[4 * i + b]);
+    }
+  } else {
+    float vv[VN];
+    load16(p, vv);
+#pragma unroll
+    for (int e = 0; e < VN; ++e) acc[e] = fmaf(w, vv[e], acc[e]);
+  }
+}
+
+__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
+
+// bytes of one chunk buffer (K, V, their scales, and the beam's source
+// rows), and of a warp's region (nbuf buffers and the chunk's weights)
+__host__ __device__ inline int row_buffer_bytes(int chw, int rb, bool beam) {
+  return round16(chw * (2 * rb + (beam ? 12 : 8)));
+}
+__host__ __device__ inline int row_region_bytes(int chw, int nbuf, int rb, bool beam) {
+  return round16(nbuf * row_buffer_bytes(chw, rb, beam) + chw * 4);
+}
+
+// Issue, as one cp.async group, the copies of keys [j0, j0 + cnt) of head h
+// into the chunk buffer at kb (K, V, their scales, the beam's source rows):
+// key j from cache row row0 (self) or row0 + anc[j] (beam). One lane a
+// 16-byte piece; the beam's ancestry is read first, in one round.
+template <typename T, int DH, bool BEAM>
+__device__ __forceinline__ void issue_chunk(uint8_t* kb, int chw, const T* __restrict__ k,
+                                            const T* __restrict__ v,
+                                            const float* __restrict__ ks,
+                                            const float* __restrict__ vs, long long kv_bs,
+                                            long long kv_rs, long long sc_bs,
+                                            const int* __restrict__ ancb, int row0, int h,
+                                            int j0, int cnt, int lane) {
+  constexpr int RB = Slice<T, DH>::BYTES;
+  constexpr int PPR = RB / 16;
+  uint8_t* vb = kb + chw * RB;
+  float* ksb = reinterpret_cast<float*>(vb + chw * RB);
+  float* vsb = ksb + chw;
+  int* srcb = reinterpret_cast<int*>(vsb + chw);
+  if constexpr (BEAM) {
+    for (int i = lane; i < cnt; i += 32) srcb[i] = row0 + ancb[j0 + i];
+    __syncwarp();
+  }
+  for (int i = lane; i < cnt * PPR; i += 32) {
+    const int key = i / PPR;
+    const long long off = static_cast<long long>(BEAM ? srcb[key] : row0) * kv_bs +
+                          (j0 + key) * kv_rs;
+    const int piece = (i % PPR) * 16;
+    cp_async16(kb + i * 16, reinterpret_cast<const uint8_t*>(at(k + off, h * DH)) + piece);
+    cp_async16(vb + i * 16, reinterpret_cast<const uint8_t*>(at(v + off, h * DH)) + piece);
+  }
+  if (ks != nullptr) {
+    for (int i = lane; i < cnt; i += 32) {
+      const long long off = static_cast<long long>(BEAM ? srcb[i] : row0) * sc_bs + j0 + i;
+      cp_async4(ksb + i, ks + off);
+      cp_async4(vsb + i, vs + off);
+    }
+  }
+  cp_async_commit();
+}
+
+template <typename T, int DH, bool BEAM>
+__global__ void __launch_bounds__(ROW_THREADS)
+decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ ks,
+                   const float* __restrict__ vs, float* __restrict__ out,
+                   int n_head, int n_keys, long long kv_bs, long long kv_rs,
+                   long long sc_bs, const int* __restrict__ anc,
+                   long long anc_rs, int g, int chw, int nbuf) {
+  constexpr int RB = Slice<T, DH>::BYTES;
+  constexpr int PPR = RB / 16;               // 16-byte pieces of a head's row
+  constexpr int VN = Vec16<T>::N;            // values of a piece
+  constexpr int CPR = DH / VN;               // lanes scoring one key row
+  constexpr int KPP = 32 / CPR;              // keys a warp scores per pass
+  constexpr int VV = Vec16<T>::N;            // V values a lane takes (16 bytes)
+  constexpr int CPV = DH / VV;               // lanes over one V row
+  constexpr int RPV = 32 / CPV;              // V rows per pass
+  static_assert(DH % VN == 0 && 32 % CPR == 0 && 32 % CPV == 0 && CPR == PPR,
+                "d_head must fill whole 16-byte pieces");
+
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ float wm[ROW_WARPS], wl[ROW_WARPS];
+  __shared__ float wo[ROW_WARPS][DH];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d = n_head * DH;
+  const int per = (n_keys + ROW_WARPS - 1) / ROW_WARPS;
+  const int j_begin = min(warp * per, n_keys);
+  const int total = min(per, n_keys - j_begin);   // this warp's keys (may be 0)
+  const int n_chunks = (total + chw - 1) / chw;
+  const int buf = row_buffer_bytes(chw, RB, BEAM);
+  uint8_t* region = dyn + warp * row_region_bytes(chw, nbuf, RB, BEAM);
+  float* p = reinterpret_cast<float*>(region + nbuf * buf);   // the chunk's scores
+  // the self entry's keys all lie in row b; the beam's in row0 + anc[b, j]
+  const int row0 = BEAM ? (b / g) * g : b;
+  const int* ancb = BEAM ? anc + b * anc_rs : nullptr;
+
+  if (n_chunks > 0)
+    issue_chunk<T, DH, BEAM>(region, chw, k, v, ks, vs, kv_bs, kv_rs, sc_bs, ancb, row0, h,
+                             j_begin, min(chw, total), lane);
+  // this lane's piece of q, while the first chunk is in flight
+  float qv[VN];
+  const float* qrow = q + static_cast<long long>(b) * d + h * DH + (lane % CPR) * VN;
+#pragma unroll
+  for (int e = 0; e < VN; ++e) qv[e] = qrow[e];
+
+  float m_run = -INFINITY, l_run = 0.f, acc[VV];
+#pragma unroll
+  for (int e = 0; e < VV; ++e) acc[e] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < n_chunks; ++c) {
+    const int j0 = j_begin + c * chw;
+    const int cnt = min(chw, total - c * chw);
+    if (c + 1 < n_chunks) {
+      issue_chunk<T, DH, BEAM>(region + ((c + 1) % nbuf) * buf, chw, k, v, ks, vs, kv_bs,
+                               kv_rs, sc_bs, ancb, row0, h, j0 + chw,
+                               min(chw, total - (c + 1) * chw), lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const uint8_t* kb = region + (c % nbuf) * buf;
+    const uint8_t* vb = kb + chw * RB;
+    const float* ksb = reinterpret_cast<const float*>(vb + chw * RB);
+    const float* vsb = ksb + chw;
+
+    // scores (q . k_j) * ks[j] and the chunk's maximum
+    float cmax = -INFINITY;
+#pragma unroll 1
+    for (int r0 = 0; r0 < cnt; r0 += KPP) {
+      const int i = r0 + lane / CPR;
+      float s = 0.f;
+      if (i < cnt)
+        s = dot16(at(reinterpret_cast<const T*>(kb + i * RB), (lane % CPR) * VN), qv, s);
+#pragma unroll
+      for (int o = CPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
+      if (i < cnt) {
+        if (ks != nullptr) s *= ksb[i];
+        if (lane % CPR == 0) p[i] = s;
+        cmax = fmaxf(cmax, s);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) cmax = fmaxf(cmax, __shfl_xor_sync(FULL_MASK, cmax, o));
+    const float m_new = fmaxf(m_run, cmax);
+    const float alpha = m_run == -INFINITY ? 0.f : expf(m_run - m_new);
+    m_run = m_new;
+    l_run *= alpha;
+#pragma unroll
+    for (int e = 0; e < VV; ++e) acc[e] *= alpha;
+    __syncwarp();
+
+    // the weighted sum of V rows, RPV rows a pass, CPV lanes a row; each
+    // lane forms its row's weight exp(s - m) * vs[j], the row's first lane
+    // adds exp(s - m) to the sum
+#pragma unroll 1
+    for (int r0 = 0; r0 < cnt; r0 += RPV) {
+      const int i = r0 + lane / CPV;
+      if (i < cnt) {
+        const float e = expf(p[i] - m_new);
+        if (lane % CPV == 0) l_run += e;
+        const float w = ks != nullptr ? e * vsb[i] : e;
+        axpy16(at(reinterpret_cast<const T*>(vb + i * RB), (lane % CPV) * VV), w, acc);
+      }
+    }
+    __syncwarp();   // the buffer and p are refilled next
+  }
+
+  // this warp's (max, sum, o): the row groups by shuffles
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) l_run += __shfl_xor_sync(FULL_MASK, l_run, o);
+#pragma unroll
+  for (int e = 0; e < VV; ++e) {
+#pragma unroll
+    for (int o = CPV; o < 32; o <<= 1) acc[e] += __shfl_xor_sync(FULL_MASK, acc[e], o);
+  }
+  if (lane < CPV) {
+#pragma unroll
+    for (int e = 0; e < VV; ++e) wo[warp][lane * VV + e] = acc[e];
+  }
+  if (lane == 0) {
+    wm[warp] = m_run;
+    wl[warp] = l_run;
+  }
+  __syncthreads();
+
+  // the warps merged in order
+  if (threadIdx.x < DH) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < ROW_WARPS; ++w) m = fmaxf(m, wm[w]);
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < ROW_WARPS; ++w) {
+      const float f = wm[w] == -INFINITY ? 0.f : expf(wm[w] - m);
+      l += wl[w] * f;
+      o += wo[w][threadIdx.x] * f;
+    }
+    out[static_cast<long long>(b) * d + h * DH + threadIdx.x] = o / l;
+  }
+}
+
+// -- the cross entries: keys split across a thread-block cluster ---------------------
 
 // What a block publishes to its cluster (static shared memory): per-warp
 // partials, so no block-wide reduction precedes a cluster barrier.
@@ -423,24 +624,37 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
+template <typename T, int DH, bool BEAM>
+int launch_rows_dh(const DecodeArgs& a) {
+  constexpr int RB = Slice<T, DH>::BYTES;
+  constexpr int KEYS = RowChunk<T, DH>::KEYS;
+  // a warp's share of the keys in one chunk, or in double-buffered chunks
+  const int per = (a.n_keys + ROW_WARPS - 1) / ROW_WARPS;
+  const int chw = per < KEYS ? per : KEYS;
+  const int nbuf = per > KEYS ? 2 : 1;
+  const size_t smem = static_cast<size_t>(ROW_WARPS) * row_region_bytes(chw, nbuf, RB, BEAM);
+  // static (the warps' partials) plus dynamic past 48 KB needs the opt-in
+  constexpr size_t static_smem = sizeof(float) * ROW_WARPS * (DH + 2);
+  if (smem + static_smem > 48 * 1024) {
+    const cudaError_t e = allow_dynamic_smem(decode_attn_kernel<T, DH, BEAM>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(a.n_head, a.batch);
+  decode_attn_kernel<T, DH, BEAM><<<grid, ROW_THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+      static_cast<float*>(a.out), a.n_head, a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs,
+      static_cast<const int*>(a.anc), a.anc_rs, a.g, chw, nbuf);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool BEAM>
 int launch_rows(const DecodeArgs& a) {
-  const dim3 grid(a.n_head, a.batch);
-  const size_t smem = static_cast<size_t>(a.n_keys) * sizeof(float);
-#define DEC_LAUNCH(DH)                                                          \
-  decode_attn_kernel<T, DH, BEAM><<<grid, DEC_THREADS, smem, a.stream>>>(       \
-      static_cast<const float*>(a.q), static_cast<const T*>(a.k),               \
-      static_cast<const T*>(a.v), static_cast<const float*>(a.ks),              \
-      static_cast<const float*>(a.vs), static_cast<float*>(a.out), a.n_head,    \
-      a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs, static_cast<const int*>(a.anc),      \
-      a.anc_rs, a.g)
   switch (a.d_head) {
-    case 32: DEC_LAUNCH(32); break;
-    case 64: DEC_LAUNCH(64); break;
+    case 32: return launch_rows_dh<T, 32, BEAM>(a);
+    case 64: return launch_rows_dh<T, 64, BEAM>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef DEC_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DH>

@@ -1,8 +1,8 @@
 // Hopper building blocks of the bf16 flash kernels (flash_attn.cu,
-// flash_attn_bwd.cu) and the bf16 vocab projection (vocab_proj.cu): TMA
-// tile loads completing on mbarriers, wgmma on 128-byte (d_head 64) or
-// 64-byte (d_head 32) swizzled shared-memory tiles, and the host's tensor
-// maps.
+// flash_attn_bwd.cu), the bf16 vocab projection (vocab_proj.cu) and the
+// weight-only matmul (woq_matmul.cu): TMA tile loads completing on
+// mbarriers, wgmma on 128-byte (d_head 64) or 64-byte (d_head 32) swizzled
+// shared-memory tiles or with A in registers, and the host's tensor maps.
 //
 // One tile layout serves every product. A TMA box of 64 rows x d_head bf16
 // lands row r at r * ROW_BYTES (ROW_BYTES = 2 d_head), its 16-byte chunks
@@ -68,14 +68,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // The barriers at ``bar``: the own tiles' (one arrival), then the ring's
 // STAGES full barriers (``full_count`` arrivals) and STAGES empty ones (lane 0
-// of each consumer warp), 8 bytes each. Thread 0 initialises, all wait.
+// of each consumer warp: ``consumer_warps``), 8 bytes each. Thread 0
+// initialises, all wait.
 template <int STAGES>
-__device__ __forceinline__ void init_ring(uint32_t bar, int full_count) {
+__device__ __forceinline__ void init_ring(uint32_t bar, int full_count,
+                                          int consumer_warps = CONSUMERS / 32) {
   if (threadIdx.x == 0) {
     mbar_init(bar, 1);
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(bar + 8 + 8 * st, full_count);
-      mbar_init(bar + 8 + 8 * STAGES + 8 * st, CONSUMERS / 32);
+      mbar_init(bar + 8 + 8 * STAGES + 8 * st, consumer_warps);
     }
     mbar_init_fence();
   }
@@ -240,6 +242,69 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t (&a)
   }
 }
 
+// d (m64nN, f32) += A B: A from registers (the m64k16 bf16 fragment), B
+// from a descriptor over N rows of 16 K-values (K-major, as wgmma_ss's B),
+// for N = 8, 16, 32, 64: the weight-only matmul's A is int8 widened in
+// registers (woq_matmul.cu)
+__device__ __forceinline__ void wgmma_rs_kn8(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_kn16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_kn32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_kn64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (N == 8) {
+    wgmma_rs_kn8(d, a, db);
+  } else if constexpr (N == 16) {
+    wgmma_rs_kn16(d, a, db);
+  } else if constexpr (N == 32) {
+    wgmma_rs_kn32(d, a, db);
+  } else {
+    static_assert(N == 64, "wgmma_rs_k takes N = 8, 16, 32 or 64");
+    wgmma_rs_kn64(d, a, db);
+  }
+}
+
 // -- host: tensor maps -------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -289,6 +354,28 @@ inline int rows_map(CUtensorMap* map, const void* base, int batch, int rows, int
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 2-D map over the int8 (rows, width) matrix at ``base`` (row stride
+// ``width`` bytes, a multiple of 16) whose box is ``box_rows`` (at most 256)
+// rows of 64 bytes, 64-byte swizzled: in shared memory byte b of row r lands
+// at r * 64 + ((b / 16) ^ ((r / 2) % 4)) * 16 + b % 16 (tile on a 512-byte
+// boundary). Rows past ``rows`` and bytes past ``width`` read as zeros.
+// Returns a cudaError_t.
+inline int bytes_map(CUtensorMap* map, const void* base, int rows, int width,
+                     int box_rows = ROWS) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width),
+                                 static_cast<cuuint64_t>(width) * rows};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

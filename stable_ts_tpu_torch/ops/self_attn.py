@@ -5,16 +5,18 @@ Replaces stable_ts_tpu/ops/self_attn.py:_kernel (``self_attn_decode``, the
 non-beam path) and :_kernel_beam (the beam path, ``anc`` given). The query
 at position ``pos`` attends keys j <= pos of one layer's row-major cache
 (B, C, d): int8 rows with per-position scales (the decode path's cache), or
-bf16/f32 rows. The kernels read each row once with 16-byte loads and
-dequantize in registers; no dequantized copy of the cache exists. The math
-is f32 throughout, as in the XLA cache path that stable_ts_tpu takes off
-the TPU (model.py:752-780).
+bf16/f32 rows. The kernel reads each row once: every warp of a (head, row)
+block copies its quarter of the keys' K and V head slices into shared
+memory at once and keeps its own running softmax, merged across the warps
+in a fixed order; no dequantized copy of the cache exists. The math is f32
+throughout, as in the XLA cache path that stable_ts_tpu takes off the TPU
+(model.py:752-780).
 
 Beam search keeps every row's K/V where the step wrote it and reshuffles
 only an ancestry table: with ``anc`` (B, C) int32 and g beams per window,
 row r reads key j from cache row (r // g) * g + anc[r, j]. The beam kernel
-takes any g that divides B and any pos < 8192 (its scores live in shared
-memory); it raises outside them and never falls back.
+takes any g that divides B and any pos < MAX_KEYS; it raises outside them
+and never falls back.
 
 Cache layout (the port's): k, v (L, B, C, d); k_scale, v_scale (L, B, C).
 """
@@ -22,7 +24,7 @@ import torch
 
 from .. import _build
 
-MAX_KEYS = 8192         # scores of one (row, head) in shared memory
+MAX_KEYS = 8192         # keys the self and beam entries take (pos < MAX_KEYS)
 # the cross entries hold their key chunk's K and V head slices and 8 query
 # rows' scores in shared memory: twice Whisper's 1500 frames, f32 included
 MAX_KEYS_CROSS = 3072

@@ -6,8 +6,10 @@ product of every quantized linear, ``(x @ q^T) * scale`` with f32
 accumulation and the per-output-channel scale applied after the K-sum,
 then the bias and a cast to x's dtype as stable_ts_tpu's ``linear`` does
 (model.py:106-113). The weight stays int8 in device memory, in torch's
-(N, K) layout; the kernel widens it in registers (see its source note for
-the decode and the tiled regimes).
+(N, K) layout. For bf16 x the kernel widens each weight tile exactly to
+bf16 in registers and runs the products on the tensor cores (wgmma), K
+split across a thread-block cluster where the output alone would not fill
+the card; f32 x takes CUDA-core kernels (see the source note).
 """
 import torch
 

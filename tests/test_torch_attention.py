@@ -49,7 +49,7 @@ def test_flash_twin_matches_masked_qkv_attention(t, s):
 
 
 @pytest.mark.parametrize('int8', [False, True])
-@pytest.mark.parametrize('pos', [0, 57, 127])
+@pytest.mark.parametrize('pos', [0, 57, 127, 63, 64])
 def test_self_decode_twin_matches_pallas_interpret(int8, pos):
     from stable_ts_tpu.ops.self_attn import self_attn_decode as sa_jax
     from stable_ts_tpu_torch.ops.self_attn import self_attn_decode
@@ -174,7 +174,7 @@ def _port_beam(q, k, v, ks, vs, anc, layer, pos, g, int8):
 
 
 @pytest.mark.parametrize('int8', [False, True])
-@pytest.mark.parametrize('g,pos', [(2, 0), (3, 57), (5, 127)])
+@pytest.mark.parametrize('g,pos', [(2, 0), (3, 57), (5, 127), (2, 63), (5, 64)])
 def test_self_decode_beam_twin_matches_xla_gather(int8, g, pos):
     """Against JAX's XLA path: dequantize the layer slab, gather each row's
     keys by ancestor (model.py:763-776), attend in f32. Within 1e-5."""
@@ -197,7 +197,7 @@ def test_self_decode_beam_twin_matches_xla_gather(int8, g, pos):
 
 
 @pytest.mark.parametrize('int8', [False, True])
-@pytest.mark.parametrize('g,pos', [(2, 5), (5, 100)])
+@pytest.mark.parametrize('g,pos', [(2, 5), (5, 100), (2, 63), (5, 64)])
 def test_self_decode_beam_twin_matches_pallas_interpret(int8, g, pos):
     """Against the Pallas beam kernel (_kernel_beam) in interpret mode. For
     an int8 cache the TPU kernel feeds its MXU bf16 query and weights
@@ -211,6 +211,25 @@ def test_self_decode_beam_twin_matches_pallas_interpret(int8, g, pos):
                  anc=jnp.asarray(anc), q_per_kv=g, interpret=True)
     got = _port_beam(q, k, v, ks, vs, anc, layer, pos, g, int8)
     assert _rel_err(got, np.asarray(ref)) <= (1e-2 if int8 else 1e-5)
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_self_decode_beam_one_sibling_matches_pallas_interpret(int8):
+    """g = 5 with every key of every row read from one sibling (local row 3),
+    the row's own key at pos included: against the Pallas beam kernel in
+    interpret mode, tolerances as above."""
+    from stable_ts_tpu.ops.self_attn import self_attn_decode as sa_jax
+    g, pos, layer = 5, 64, 1
+    q, k, v, ks, vs, anc = _beam_case(40, int8, g, pos)
+    anc[:] = 3
+    ref = sa_jax(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), layer, pos, H,
+                 ks=jnp.asarray(ks[:, :, None]), vs=jnp.asarray(vs[:, :, None]),
+                 anc=jnp.asarray(anc), q_per_kv=g, interpret=True)
+    got = _port_beam(q, k, v, ks, vs, anc, layer, pos, g, int8)
+    assert _rel_err(got, np.asarray(ref)) <= (1e-2 if int8 else 1e-5)
+    # every row of a group reads the same keys: the outputs differ by q alone
+    same_q = _port_beam(np.repeat(q[:1], len(q), 0), k, v, ks, vs, anc, layer, pos, g, int8)
+    np.testing.assert_allclose(same_q[:g], np.repeat(same_q[:1], g, 0), rtol=0, atol=0)
 
 
 def test_wrappers_refuse_other_devices():

@@ -148,6 +148,78 @@ def test_self_decode_beam_kernel_matches_twin(cuda, dtype, g, pos, pattern):
     assert _rel(got, ref) <= 1e-5
 
 
+def _row_cache(gen, kind, rows, ctx, d):
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    k, v = _randn(gen, rows, ctx, d), _randn(gen, rows, ctx, d)
+    if kind == torch.int8:
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        return k, v, ks, vs
+    return k.to(kind), v.to(kind), None, None
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('n_keys', [1, 63, 64, 65, 201, 448, 8192])
+@pytest.mark.parametrize('dh', [32, 64])
+def test_self_decode_kernel_chunks_and_reruns(cuda, dtype, n_keys, dh):
+    """Each warp of the self entry holds a quarter of the keys, in one chunk
+    or in double-buffered chunks of 8 KB of K (n_keys 8192): within 1e-5 of
+    the twin, and a rerun equal bit for bit (the warps merge in order)."""
+    from stable_ts_tpu_torch.ops.self_attn import self_attn_decode, self_attn_decode_ref
+    n_head = 20
+    d = n_head * dh
+    k, v, ks, vs = _row_cache(cuda, dtype, 2, max(n_keys, 448), d)
+    q = _randn(cuda, 2, d) * dh ** -0.5
+    before = _build.launches['self_attn_decode']
+    got = self_attn_decode(q, k, v, ks, vs, n_keys - 1, n_head)
+    again = self_attn_decode(q, k, v, ks, vs, n_keys - 1, n_head)
+    torch.cuda.synchronize()
+    assert _build.launches['self_attn_decode'] == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, self_attn_decode_ref(q, k, v, ks, vs, n_keys - 1, n_head)) <= 1e-5
+
+
+@pytest.mark.parametrize('beam', [False, True])
+def test_self_decode_kernel_every_decode_pos(cuda, beam):
+    """Every pos of a large-v3 decode (448 keys, int8 cache, d_head 64): the
+    shared memory a launch takes grows with pos and passes the 48 KB that
+    needs the opt-in on the way."""
+    from stable_ts_tpu_torch.ops.self_attn import self_attn_decode, self_attn_decode_ref
+    n_head, rows, g, ctx = 20, 5 if beam else 1, 5, 448
+    d = n_head * 64
+    k, v, ks, vs = _row_cache(cuda, torch.int8, rows, ctx, d)
+    q = _randn(cuda, rows, d) * 0.125
+    kw = dict(anc=_anc(cuda, rows, g, ctx, 0, 'random'), q_per_kv=g) if beam else {}
+    for pos in range(ctx):
+        if beam:
+            kw['anc'][:, pos] = torch.arange(rows, device='cuda', dtype=torch.int32)
+        got = self_attn_decode(q, k, v, ks, vs, pos, n_head, **kw)
+        ref = self_attn_decode_ref(q, k, v, ks, vs, pos, n_head, **kw)
+        assert _rel(got, ref) <= 1e-5, pos
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('n_keys', [1, 64, 65, 448, 8192])
+@pytest.mark.parametrize('g', [2, 5])
+@pytest.mark.parametrize('dh', [32, 64])
+def test_self_decode_beam_kernel_chunks_and_reruns(cuda, dtype, n_keys, g, dh):
+    """The beam entry reads each chunk's ancestry, then copies each key from
+    its ancestor row: random ancestry, within 1e-5 of the twin, a rerun
+    equal bit for bit."""
+    from stable_ts_tpu_torch.ops.self_attn import self_attn_decode, self_attn_decode_ref
+    n_head, rows = 20, 2 * g
+    d = n_head * dh
+    ctx = max(n_keys, 448)
+    k, v, ks, vs = _row_cache(cuda, dtype, rows, ctx, d)
+    q = _randn(cuda, rows, d) * dh ** -0.5
+    anc = _anc(cuda, rows, g, ctx, n_keys - 1, 'random')
+    got = self_attn_decode(q, k, v, ks, vs, n_keys - 1, n_head, anc=anc, q_per_kv=g)
+    again = self_attn_decode(q, k, v, ks, vs, n_keys - 1, n_head, anc=anc, q_per_kv=g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = self_attn_decode_ref(q, k, v, ks, vs, n_keys - 1, n_head, anc=anc, q_per_kv=g)
+    assert _rel(got, ref) <= 1e-5
+
+
 def test_self_decode_beam_kernel_raises_beyond_its_limits(cuda):
     from stable_ts_tpu_torch.ops.self_attn import self_attn_decode
     d, n_head = 128, 2
@@ -205,7 +277,9 @@ def test_logit_epilogue_kernel_matches_twin(cuda, dtype, b, silence, grammar):
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('m,k,n', [(1, 1280, 3840), (5, 5120, 1280), (16, 1280, 5120),
                                    (17, 1280, 1280), (230, 1280, 5120), (1500, 5120, 1280),
-                                   (3, 80, 100), (70, 96, 33)])
+                                   (3, 80, 100), (70, 96, 33), (1, 1280, 5120),
+                                   (5, 1280, 5120), (17, 1280, 5120), (1500, 1280, 5120),
+                                   (64, 112, 65), (65, 112, 130), (257, 112, 65)])
 def test_woq_kernel_matches_twin(cuda, dtype, m, k, n):
     """Both regimes (M <= 16 and the tiled one) and ragged M, N; the same
     exact products summed in f32 in another order."""
@@ -222,6 +296,32 @@ def test_woq_kernel_matches_twin(cuda, dtype, m, k, n):
     # (2^-8 relative) apart; f32 outputs within 1e-5
     ref = woq_matmul_ref(x, q, scale).to(dtype)
     assert _rel(got, ref) <= (2 ** -8 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize('m,k,n', [(1, 1280, 5120), (5, 1280, 5120), (16, 1280, 5120),
+                                   (17, 1280, 5120), (230, 1280, 5120), (1500, 1280, 5120),
+                                   (1, 5120, 1280), (5, 1280, 3840), (1500, 5120, 1280),
+                                   (8, 112, 65), (9, 112, 130), (32, 112, 65), (33, 112, 130),
+                                   (64, 112, 65), (65, 112, 130), (128, 16, 65),
+                                   (257, 112, 130), (230, 1280, 1280), (64, 1280, 1280),
+                                   (40, 512, 320), (3, 2048, 200)])
+def test_woq_wgmma_kernel_sums_and_reruns(cuda, m, k, n):
+    """The bf16 tensor-core kernel's f32 output (before the wrapper's cast)
+    at every M regime (x tiles of 8, 16, 32 and 64 rows with four
+    warpgroups along K where 4 slabs divide K, else one; 192-row tiles
+    above 64), K split over clusters of 1-8 blocks in both regimes, and
+    ragged N and K: within 1e-5 of the largest output (the same exact
+    products summed in another order), and a rerun equal bit for bit
+    (fixed-order sums, no atomics)."""
+    from stable_ts_tpu_torch.models.whisper.quantization import quantize_weight
+    from stable_ts_tpu_torch.ops.woq_matmul import _woq_cuda, woq_matmul_ref
+    q, scale = quantize_weight(_randn(cuda, n, k) * 0.05)
+    x = _randn(cuda, m, k, dtype=torch.bfloat16)
+    got = _woq_cuda(x, q, scale)
+    again = _woq_cuda(x, q, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, woq_matmul_ref(x, q, scale)) <= 1e-5
 
 
 def test_woq_kernel_raises_outside_its_contract(cuda):

@@ -54,9 +54,13 @@ def test_quantize_tensor_matches_jax(bits, axis):
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('m,k,n', [(1, 64, 192), (7, 80, 100), (37, 96, 33),
-                                   (300, 64, 256)])
+                                   (300, 64, 256), (16, 112, 65), (17, 112, 130),
+                                   (64, 112, 65), (65, 112, 130), (257, 112, 65)])
 def test_woq_twin_matches_pallas_interpret(m, k, n, dtype, monkeypatch):
-    """Ragged M, K and N; the Pallas kernel pads M and N to its tiles."""
+    """Ragged M, K and N; the Pallas kernel pads M and N to its tiles. The
+    later cases sit on the CUDA kernel's tile edges: x tiles of 16, 64 and
+    256 rows either side, output columns ragged over 64-column tiles, K = 7
+    steps of 16 (a ragged 64-wide K slab)."""
     monkeypatch.setenv('STABLE_TS_TPU_WOQ', 'interpret')
     from stable_ts_tpu.models.whisper.quantization import quantize_weight as qw_jax
     from stable_ts_tpu.ops.woq_matmul import int8_matmul

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of stable_ts_tpu_torch's cross-attention decode entries and
-vocab projection at Whisper large-v3's decode shapes, for the package found
-under ROOT (default: this checkout).
+"""Device times of stable_ts_tpu_torch's decode-attention entries (self,
+beam, cross), vocab projection and weight-only matmul at Whisper large-v3's
+shapes, and of an empty launch where the tree has one, for the package
+found under ROOT (default: this checkout).
 
     python3 tools/torch_kernel_times.py [ROOT ...]
 
@@ -27,8 +28,10 @@ def time_root(root: str) -> dict:
     import chip_smoke
     sys.path.insert(0, root)
     import torch
+    from stable_ts_tpu_torch import _build
     from stable_ts_tpu_torch.models.whisper.model import quantize_rows
-    from stable_ts_tpu_torch.ops import cross_attn, vocab_proj
+    from stable_ts_tpu_torch.models.whisper.quantization import quantize_weight
+    from stable_ts_tpu_torch.ops import cross_attn, self_attn, vocab_proj, woq_matmul
     import stable_ts_tpu_torch
     package = os.path.dirname(stable_ts_tpu_torch.__file__)
     if package != os.path.join(root, 'stable_ts_tpu_torch'):
@@ -56,6 +59,31 @@ def time_root(root: str) -> dict:
         times[f'cross int4 g={g}'] = both(
             lambda: cross_attn.cross_attn_decode(q, kv4, sc4, 7, s, h, q_per_kv=g, bits=4),
             200)
+    # the self and beam entries on one layer of an int8 row cache, pos 200
+    pos, ctx = 200, 256
+    for rows, g in ((1, 1), (5, 5)):
+        kc, ks = quantize_rows(randn(layers, rows, ctx, d))
+        vc, vs = quantize_rows(randn(layers, rows, ctx, d))
+        q = randn(rows, d) * (d // h) ** -0.5
+        args = (q, kc[5], vc[5], ks[5], vs[5], pos, h)
+        if g == 1:
+            times['self int8 pos 200'] = both(lambda: self_attn.self_attn_decode(*args), 200)
+        else:
+            anc = torch.randint(0, g, (rows, ctx), generator=gen, device='cuda',
+                                dtype=torch.int32)
+            anc[:, pos] = torch.arange(rows, device='cuda', dtype=torch.int32)
+            times['beam int8 pos 200 g=5'] = both(
+                lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=g), 200)
+    # the dq linears' largest shape, (K, N) = (1280, 5120): decode and encoder
+    wq, wscale = quantize_weight(randn(5120, d) * 0.02)
+    for m in (1, 5, 1500):
+        x = randn(m, d).to(torch.bfloat16)
+        times[f'woq_matmul M={m} (1280,5120)'] = both(
+            lambda: woq_matmul._woq_cuda(x, wq, wscale), 200 if m <= 5 else 20)
+    if 'empty_launch' in _build._SIGNATURES:
+        lib, stream = _build.lib(), torch.cuda.current_stream().cuda_stream
+        times['empty launch (20 blocks of 128)'] = both(
+            lambda: _build.check(lib.empty_launch(20, 128, stream), 'empty_launch'), 200)
     emb = (randn(51866, d) * 0.02).to(torch.bfloat16)
     for m in (1, 5, 16, 64, 256):
         x = randn(m, d).to(torch.bfloat16)
