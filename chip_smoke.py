@@ -29,10 +29,11 @@ all thirteen entries among them. A tiny f32 model also takes three train
 steps on the CPU (twins) and on the card (kernels), which must agree, and
 transcribes alike through both (with known heads, quantized, and with no
 heads). The fixed-order kernels (the cross entries on a thread-block
-cluster, vocab_proj and bf16 woq_matmul on wgmma, the self and beam entries
-with their cache slice in flight) must give bit-identical reruns. One
-line gives the device time of an empty launch, the floor under every
-decode kernel.
+cluster, vocab_proj, bf16 woq_matmul and the bf16 logit epilogue on wgmma,
+the self and beam entries with their cache slice in flight, the DTW) must
+give bit-identical reruns, and the DTW's costs must equal its twin's bit
+for bit. One line gives the device time of an empty launch, the floor
+under every decode kernel.
 
     python3 chip_smoke.py        # needs one CUDA GPU; exits non-zero on any failure
 
@@ -42,6 +43,10 @@ twin's, the bound on its time (H100 SXM data sheet) and, where one PyTorch
 call computes the same function, that call's time (every kernel and
 library call by its device time alone, from torch.profiler; the CUDA-event
 times, which also read the wrappers' host time, are logged beside them);
+the logit epilogue's entry is B = 1's, with B = 5's under "B=5" and
+torch.mm of the same product beside each as "yardstick_mm_ms" (not the
+same function), and the DTW's has its time a row of the chain
+("ms_per_row");
 the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the package
 beside it, the script fails and prints no result.
@@ -330,14 +335,15 @@ def kernel_checks(torch, results: dict) -> None:
     got = dtw.dtw_cost(x)
     ref = dtw.dtw_cost_ref(x)
     torch.cuda.synchronize()
-    # the INF (1e30) borders must match exactly; the finite costs within
-    # 1e-6 of the largest finite cost (the kernel and the twin round the
-    # same f64 prefix sums, so they normally agree bit for bit)
-    border = ref >= 1e29
-    if not bool(((got >= 1e29) == border).all()):
-        raise AssertionError('dtw_cost: INF borders differ from the twin')
-    err = check('dtw_cost', torch.where(border, 0.0, got),
-                torch.where(border, 0.0, ref), 1e-6, 'cost (1,226,1500) f32')
+    # the kernel and the twin round the same f64 prefix sums once and take
+    # exact minima: the costs must be equal bit for bit
+    same = torch.equal(got, ref)
+    err = (got - ref).abs().max().item()
+    log(f'[kernel] dtw_cost cost (1,226,1500) f32: equal to the twin bit for bit: {same} '
+        f'(max_abs_err={err:.3e})')
+    if not same:
+        raise AssertionError('dtw_cost: the costs differ from the twin\'s')
+    rerun_identical('dtw_cost', lambda: dtw.dtw_cost(x), got, '(1,226,1500)')
     n, m = mat.shape
     jk = dtw.dtw_jumps(got[0].cpu().numpy(), n, m)
     jr = dtw.dtw_jumps(ref[0].cpu().numpy(), n, m)
@@ -348,10 +354,11 @@ def kernel_checks(torch, results: dict) -> None:
         raise AssertionError('DTW jump frames differ between kernel and twin')
     ms, ev = both_ms(lambda: dtw.dtw_cost(x))
     plain = device_ms(lambda: dtw.dtw_cost_ref(x), iters=3, warmup=1)
-    log(f'[kernel] dtw_cost (1,226,1500): device kernel {ms:.4f} ms, twin {plain:.4f} ms; '
-        f'events {ev:.4f} ms')
+    log(f'[kernel] dtw_cost (1,226,1500): device kernel {ms:.4f} ms ({ms / n * 1e3:.3f} us '
+        f'a row over the {n}-row chain), twin {plain:.4f} ms; events {ev:.4f} ms')
     # an add and two minimums per cell
     results['dtw_cost'] = entry(err, ms, plain, nbytes(x, got), 3 * n * m, 'f32')
+    results['dtw_cost']['ms_per_row'] = ms / n
 
     # D, cross group entry: g = 5 query rows on one window's int8 K/V
     from stable_ts_tpu_torch.models.whisper.model import quantize_rows
@@ -460,14 +467,23 @@ def epilogue_checks(torch, results: dict, randn, gen) -> None:
             f'differ: {ids_ok} {"OK" if ok else "FAIL"}')
         if not ok:
             raise AssertionError(f'logit_epilogue {what} disagrees with its twin')
+        rerun_identical('logit_epilogue', lambda: epi.fused_logit_aggregates(*args), got,
+                        what)
         ms, ev = both_ms(lambda: epi.fused_logit_aggregates(*args), iters=50)
         plain = device_ms(lambda: epi.fused_logit_aggregates_ref(*args), iters=20)
+        # the yardstick: the product alone, as one library call (no filters,
+        # no fold; not the same function, so not library_ms)
+        mm = device_ms(lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), iters=50)
         log(f'[kernel] logit_epilogue {what}: device kernel {ms:.4f} ms, twin '
-            f'{plain:.4f} ms; events {ev:.4f} ms')
+            f'{plain:.4f} ms, yardstick torch.mm(x, emb.t(), out_dtype=f32) {mm:.4f} ms; '
+            f'events {ev:.4f} ms')
+        numbers = entry(err, ms, plain, nbytes(x, emb, suppress, sil, flags, got),
+                        2 * b * v * d, 'bf16')
+        numbers['yardstick_mm_ms'] = mm
         if b == 1:
-            results['logit_epilogue'] = entry(
-                err, ms, plain, nbytes(x, emb, suppress, sil, flags, got),
-                2 * b * v * d, 'bf16')
+            results['logit_epilogue'] = numbers
+        else:
+            results['logit_epilogue'][f'B={b}'] = numbers
 
 
 def int4_cross_checks(torch, results: dict, randn) -> None:

@@ -1,6 +1,7 @@
 // Hopper building blocks of the bf16 flash kernels (flash_attn.cu,
-// flash_attn_bwd.cu), the bf16 vocab projection (vocab_proj.cu) and the
-// weight-only matmul (woq_matmul.cu): TMA tile loads completing on
+// flash_attn_bwd.cu), the bf16 vocab projection (vocab_proj.cu), the
+// greedy logit epilogue (logit_epilogue.cu) and the weight-only matmul
+// (woq_matmul.cu): TMA tile loads completing on
 // mbarriers, wgmma on 128-byte (d_head 64) or 64-byte (d_head 32) swizzled
 // shared-memory tiles or with A in registers, and the host's tensor maps.
 //
@@ -107,6 +108,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// wait until at most PENDING committed wgmma groups are still in flight
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(PENDING) : "memory");
 }
 
 // Tie accumulator registers to this point of the program: reads after a

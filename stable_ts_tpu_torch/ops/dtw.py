@@ -2,10 +2,12 @@
 
 The cost matrix C[i, j] = x[i-1, j-1] + min(C[i-1, j-1], C[i-1, j], C[i, j-1])
 (C[0, 0] = 0, INF = 1e30 borders) comes from the CUDA kernel in
-``csrc/dtw.cu`` on the GPU and from :func:`dtw_cost_ref`, its plain twin,
-on the CPU. Both use the row algebra of the JAX package (one prefix sum and
-one prefix min per row) with the prefix sums in f64, rounded to f32 once,
-so the kernel and the twin produce the same f32 costs.
+``csrc/dtw.cu`` on the GPU (producer warps take each row's prefix sums
+ahead of the row chain, which carries only the prefix min) and from
+:func:`dtw_cost_ref`, its plain twin, on the CPU. Both use the row algebra
+of the JAX package (one prefix sum and one prefix min per row) with the
+prefix sums in f64, rounded to f32 once, so the kernel and the twin
+produce the same f32 costs.
 
 The traceback (:func:`dtw_jumps`) runs on the host over the downloaded cost
 matrix and returns exactly ``dtw_jumps_device``'s per-token jump frames:

@@ -13,7 +13,10 @@ vector and the timestamp-silence mask, sets the timestamp-grammar bans to
 and the timestamp ids [ts_begin, V). They are all the greedy loop needs:
 :func:`select_from_aggregates` turns them into the next token and its
 logprob, force-timestamp rule included. The kernel streams the embedding
-once per step and never writes the (B, V) logits; see its source note.
+once per step and never writes the (B, V) logits: a bf16 table goes to the
+tensor-core kernel (wgmma tiles fed by TMA, a persistent grid, the filters
+and the fold on the accumulator), an f32 one to the CUDA-core kernel; see
+the source note.
 
 Filter semantics (the loop's steps i >= 1; the i == 0 rules run once per
 window through the unfused ``LogitFilter``): suppress and silence are
@@ -107,6 +110,8 @@ def fused_logit_aggregates(x, emb, suppress, ts_silence, flags, ts_begin: int,
     if not (x.device == emb.device == suppress.device):
         raise ValueError('logit epilogue: operands must share a device')
     x = x.to(emb.dtype).contiguous()
+    if x.data_ptr() % 16:   # the bf16 kernel's TMA reads x from a 16-byte aligned base
+        x = x.clone()
     lib = _build.lib()
     part = torch.empty(lib.epilogue_partial_floats(b, v), dtype=torch.float32,
                        device=x.device)

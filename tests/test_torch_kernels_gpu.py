@@ -77,7 +77,8 @@ def test_cross_decode_kernel_matches_twin(cuda, quant):
     assert _rel(got, ref) <= 1e-3
 
 
-@pytest.mark.parametrize('shape', [(1, 226, 1500), (3, 40, 333), (1, 1, 1)])
+@pytest.mark.parametrize('shape', [(1, 226, 1500), (3, 40, 333), (1, 1, 1), (2, 448, 1500),
+                                   (1, 1, 4096), (1, 0, 7)])
 def test_dtw_kernel_matches_twin_exactly(cuda, shape):
     from stable_ts_tpu_torch.ops.dtw import dtw_cost, dtw_cost_ref, dtw_jumps
     x = _randn(cuda, *shape)
@@ -88,6 +89,21 @@ def test_dtw_kernel_matches_twin_exactly(cuda, shape):
     for bi in range(shape[0]):
         assert (dtw_jumps(got[bi].cpu().numpy(), n, m)
                 == dtw_jumps(ref[bi].cpu().numpy(), n, m)).all()
+
+
+def test_dtw_kernel_reruns_counts_and_limits(cuda):
+    """Bit-identical reruns (fixed scan order, no atomics), one count per
+    call, and a raise beyond M = 4096 columns."""
+    from stable_ts_tpu_torch.ops.dtw import dtw_cost
+    x = _randn(cuda, 2, 226, 1500)
+    before = _build.launches['dtw_cost']
+    got = dtw_cost(x)
+    again = dtw_cost(x)
+    torch.cuda.synchronize()
+    assert _build.launches['dtw_cost'] == before + 2
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match='4096'):
+        dtw_cost(_randn(cuda, 1, 3, 4097))
 
 
 @pytest.mark.parametrize('quant', [True, False])
@@ -253,6 +269,15 @@ def _epilogue_inputs(gen, b, v, d, ts_begin, dtype, silence):
     return x, emb, suppress, sil, flags.int()
 
 
+def _check_aggregates(got, ref):
+    # maxima and sums within 1e-3 relative (f32 sums in another order);
+    # argmax ids equal
+    for col in (0, 2, 3, 5):
+        assert ((got[:, col] - ref[:, col]).abs()
+                <= 1e-3 * ref[:, col].abs().clamp_min(1.0)).all(), col
+    assert torch.equal(got[:, [1, 4]], ref[:, [1, 4]])
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('b,silence,grammar', [(1, True, True), (5, True, True),
                                                (9, False, True), (3, True, False)])
@@ -265,13 +290,69 @@ def test_logit_epilogue_kernel_matches_twin(cuda, dtype, b, silence, grammar):
     got = fused_logit_aggregates(*args, ts_begin, eot, grammar)
     torch.cuda.synchronize()
     assert _build.launches['logit_epilogue'] == before + 1
-    ref = fused_logit_aggregates_ref(*args, ts_begin, eot, grammar)
-    # maxima and sums within 1e-3 relative (f32 sums in another order);
-    # argmax ids equal
-    for col in (0, 2, 3, 5):
-        assert ((got[:, col] - ref[:, col]).abs()
-                <= 1e-3 * ref[:, col].abs().clamp_min(1.0)).all(), col
-    assert torch.equal(got[:, [1, 4]], ref[:, [1, 4]])
+    _check_aggregates(got, fused_logit_aggregates_ref(*args, ts_begin, eot, grammar))
+
+
+@pytest.mark.parametrize('b', [1, 5, 8, 9, 17, 64, 65])
+def test_logit_epilogue_wgmma_rows_reruns_and_counts(cuda, b):
+    """The bf16 tensor-core kernel at every N variant (8, 16, 32, 64) and with
+    a second chunk of x rows (65): the twin's aggregates, a rerun equal bit
+    for bit (fixed merge order), one count per call."""
+    from stable_ts_tpu_torch.ops.logit_epilogue import (fused_logit_aggregates,
+                                                        fused_logit_aggregates_ref)
+    v, d, ts_begin, eot = 51866, 1280, 50365, 50257
+    args = _epilogue_inputs(cuda, b, v, d, ts_begin, torch.bfloat16, True)
+    before = _build.launches['logit_epilogue']
+    got = fused_logit_aggregates(*args, ts_begin, eot, True)
+    again = fused_logit_aggregates(*args, ts_begin, eot, True)
+    torch.cuda.synchronize()
+    assert _build.launches['logit_epilogue'] == before + 2
+    assert torch.equal(got, again)
+    _check_aggregates(got, fused_logit_aggregates_ref(*args, ts_begin, eot, True))
+
+
+def test_logit_epilogue_wgmma_ties_bans_and_last_tile(cuda):
+    """Exact ties across tiles, warps and lane groups go to the lower id; a
+    part whose every id is banned folds to m = -1e9 at its first id; ids of
+    the last, partial tile win; with_grammar=False takes no flags."""
+    from stable_ts_tpu_torch.ops.logit_epilogue import (fused_logit_aggregates,
+                                                        fused_logit_aggregates_ref)
+    v, d, ts_begin, eot = 51866, 1280, 50365, 50257
+    x = _randn(cuda, 4, d, dtype=torch.bfloat16)
+    emb = (_randn(cuda, v, d) * 0.05).to(torch.bfloat16)
+    unit = (x.float() / x.float().norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    # (text pair, timestamp pair) of equal rows: id = 64 tile + 16 warp + lane
+    # group (+ 8 for a thread's second row)
+    pairs = [((64 * 3 + 16 * 1 + 2, 64 * 500 + 16 * 3 + 8 + 5), (50368, 51864)),
+             ((64 * 10 + 2, 64 * 10 + 16 * 3 + 8 + 7), (50400 + 17, 51840 + 9)),
+             ((64 * 700 + 16 * 2 + 8 + 1, 64 * 701 + 0), (ts_begin, ts_begin + 1))]
+    for k, ((t0, t1), (s0, s1)) in enumerate(pairs):
+        emb[t0] = emb[t1] = unit[k] * 8
+        emb[s0] = emb[s1] = unit[k] * 4
+    # row 3: the text part's maximum at id 100, the timestamp part's at the
+    # last id (the partial tile's)
+    emb[100] = unit[3] * 2
+    emb[v - 1] = unit[3] * 8
+    suppress = torch.zeros(v, device='cuda')
+    for grammar in (False, True):
+        flags = None
+        if grammar:
+            # row 0 bans every timestamp, the others nothing
+            flags = torch.tensor([[0, 1, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0],
+                                  [0, 0, 0, 0]], dtype=torch.int32, device='cuda')
+        args = (x, emb, suppress, None, flags, ts_begin, eot, grammar)
+        got = fused_logit_aggregates(*args)
+        ref = fused_logit_aggregates_ref(*args)
+        torch.cuda.synchronize()
+        _check_aggregates(got, ref)
+        for k, ((t0, _), (s0, _)) in enumerate(pairs):
+            assert got[k, 1].item() == t0
+            if not (grammar and k == 0):
+                assert got[k, 4].item() == s0
+        assert got[3, 1].item() == 100 and got[3, 4].item() == v - 1
+        if grammar:
+            assert got[0, 3].item() == -1e9 and got[0, 4].item() == ts_begin
+            assert abs(got[0, 5].item() - (v - ts_begin)) <= 1e-3 * (v - ts_begin)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Device times of stable_ts_tpu_torch's decode-attention entries (self,
-beam, cross), vocab projection and weight-only matmul at Whisper large-v3's
-shapes, and of an empty launch where the tree has one, for the package
-found under ROOT (default: this checkout).
+beam, cross), vocab projection, weight-only matmul, greedy logit epilogue
+(beside torch.mm of the same product, its yardstick) and DTW cost at
+Whisper large-v3's shapes, and of an empty launch where the tree has one,
+for the package found under ROOT (default: this checkout).
 
     python3 tools/torch_kernel_times.py [ROOT ...]
 
@@ -31,7 +32,8 @@ def time_root(root: str) -> dict:
     from stable_ts_tpu_torch import _build
     from stable_ts_tpu_torch.models.whisper.model import quantize_rows
     from stable_ts_tpu_torch.models.whisper.quantization import quantize_weight
-    from stable_ts_tpu_torch.ops import cross_attn, self_attn, vocab_proj, woq_matmul
+    from stable_ts_tpu_torch.ops import (cross_attn, dtw, logit_epilogue, self_attn,
+                                         vocab_proj, woq_matmul)
     import stable_ts_tpu_torch
     package = os.path.dirname(stable_ts_tpu_torch.__file__)
     if package != os.path.join(root, 'stable_ts_tpu_torch'):
@@ -90,6 +92,24 @@ def time_root(root: str) -> dict:
         times[f'vocab_proj M={m}'] = both(lambda: vocab_proj.vocab_proj(x, emb), 50)
         times[f'torch.mm M={m}'] = both(
             lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), 50)
+    # the greedy epilogue at chip_smoke.py's shapes: a suppress list, a
+    # silence mask on the timestamps, grammar flags that differ across rows
+    v, ts_begin, eot = 51866, 50365, 50257
+    suppress = torch.where(torch.rand(v, generator=gen, device='cuda') < 0.02, -1e9, 0.0)
+    for b in (1, 5):
+        x = randn(b, d).to(torch.bfloat16)
+        sil = torch.zeros((b, v), device='cuda')
+        sil[:, ts_begin:] = torch.where(
+            torch.rand((b, v - ts_begin), generator=gen, device='cuda') < 0.3, -1e9, 0.0)
+        r = torch.arange(b, device='cuda')
+        flags = torch.stack([(r % 3 == 1).long(), (r % 3 == 2).long(),
+                             (r % 2 == 0).long(), (r * 211) % 700], 1).int()
+        times[f'logit_epilogue B={b}'] = both(lambda: logit_epilogue.fused_logit_aggregates(
+            x, emb, suppress, sil, flags, ts_begin, eot, True), 50)
+        times[f'torch.mm B={b} (the epilogue\'s product alone)'] = both(
+            lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), 50)
+    cost_in = randn(1, 226, s)
+    times['dtw_cost (1,226,1500)'] = both(lambda: dtw.dtw_cost(cost_in), 20)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
