@@ -13,6 +13,19 @@ a synthetic rank table the size of the multilingual vocabulary) through
   weights fail every rung, so every rung runs);
 - no heads: the same weights with no known alignment heads, 10 s greedy
   with language='en' (6 heads selected per token from the full capture);
+- checkpoint: the same weights written as an OpenAI ``large-v3.pt``
+  (``save_openai_checkpoint``) beside a ``multilingual.tiktoken`` of the
+  rank table, loaded back by ``load_model(path, dtype=torch.bfloat16)``;
+  every parameter, the heads the file name resolves to and the
+  vocabulary must be the sources';
+- new aligner: on the loaded model, 10 s greedy with the legacy aligner
+  and known heads, then with aligner='new' (every head scored on the
+  card), with each request's word-timing time and peak device memory;
+- extra models: the same legacy request with a second large-v3 (seed 1)
+  in ``extra_models``, which must add its 32 encoder and 32 capture-pass
+  flash launches a window; then one window's encoder and 'new' aligner
+  pass under ``profiling.profile_trace``, whose Chrome trace must name the
+  flash and DTW kernels;
 - dq: the same weights quantized to int8 on the card (``dq=True``), with
   packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
   and 30 s beam_size=5 with no language;
@@ -27,8 +40,8 @@ The launch counts are reset before each path (each train step) and read
 after it; the script fails unless each path launched the kernels it runs,
 all thirteen entries among them. A tiny f32 model also takes three train
 steps on the CPU (twins) and on the card (kernels), which must agree, and
-transcribes alike through both (with known heads, quantized, and with no
-heads). The fixed-order kernels (the cross entries on a thread-block
+transcribes alike through both (with known heads, quantized, with no
+heads, with the 'new' aligner and with an extra model). The fixed-order kernels (the cross entries on a thread-block
 cluster, vocab_proj, bf16 woq_matmul and the bf16 logit epilogue on wgmma,
 the self and beam entries with their cache slice in flight, the DTW) must
 give bit-identical reruns, and the DTW's costs must equal its twin's bit
@@ -822,23 +835,30 @@ def tiny_parity(torch) -> None:
     """The tiny f32 model transcribes the same seeded audio alike on the
     CPU (every op through its twin) and on the GPU (through the kernels):
     with float weights on int8 cross K/V, quantized (dq) on packed int4
-    cross K/V, and with no known alignment heads (6 selected dynamically
-    per token)."""
+    cross K/V, with no known alignment heads (6 selected dynamically per
+    token), with the 'new' aligner, and with an extra model."""
     import numpy as np
     from stable_ts_tpu_torch.loaders import WhisperTorch, load_test_model
     audio = (np.random.default_rng(21).standard_normal(SR * 40) * 0.1
              ).astype(np.float32)
-    for dq, kv_quant, heads, what in (
-            (False, True, HEADS_TINY, 'f32 weights, int8 cross K/V'),
-            (True, 4, HEADS_TINY, 'int8 weights (dq), int4 cross K/V'),
-            (False, True, None, 'f32 weights, int8 cross K/V, no alignment heads')):
+    extra_cpu = load_test_model(seed=1, device='cpu', alignment_heads=None)
+    extra_gpu = WhisperTorch(extra_cpu.dims, copy.deepcopy(extra_cpu.params),
+                             device='cuda', name='test-tiny', ranks=extra_cpu._ranks)
+    for dq, kv_quant, heads, options, what in (
+            (False, True, HEADS_TINY, {}, 'f32 weights, int8 cross K/V'),
+            (True, 4, HEADS_TINY, {}, 'int8 weights (dq), int4 cross K/V'),
+            (False, True, None, {}, 'f32 weights, int8 cross K/V, no alignment heads'),
+            (False, True, HEADS_TINY, dict(aligner='new'), "f32 weights, aligner='new'"),
+            (False, True, HEADS_TINY, 'extra', 'f32 weights, an extra model (no heads)')):
         cpu = load_test_model(seed=0, device='cpu', alignment_heads=heads, dq=dq)
         gpu = WhisperTorch(cpu.dims, copy.deepcopy(cpu.params), device='cuda',
                            name='test-tiny', ranks=cpu._ranks, alignment_heads=heads)
         if gpu.quantized != dq:
             raise AssertionError(f'tiny model: quantized {gpu.quantized} != {dq}')
         kw = dict(language='en', temperature=0, verbose=None, kv_quant=kv_quant)
-        rc, rg = cpu.transcribe(audio, **kw), gpu.transcribe(audio, **kw)
+        kw_c, kw_g = ((dict(kw, extra_models=[extra_cpu]), dict(kw, extra_models=[extra_gpu]))
+                      if options == 'extra' else (dict(kw, **options), dict(kw, **options)))
+        rc, rg = cpu.transcribe(audio, **kw_c), gpu.transcribe(audio, **kw_g)
         words_c = [(w.start, w.end) for s in rc.segments for w in s.words]
         words_g = [(w.start, w.end) for s in rg.segments for w in s.words]
         worst = max((max(abs(a[0] - b[0]), abs(a[1] - b[1]))
@@ -954,6 +974,10 @@ def main() -> int:
         counts[name] = counts.get(name, 0) + n
     del no_heads
 
+    # -- a checkpoint written and loaded; the 'new' aligner; an extra model ----------------
+    for name, n in checkpoint_paths(torch, model, ranks, audio, ladder).items():
+        counts[name] = counts.get(name, 0) + n
+
     # -- the dq path: the same weights quantized on the card, int4 cross K/V -------------
     from stable_ts_tpu_torch.models.whisper.quantization import quantized_bytes
     float_bytes = quantized_bytes(model.params)
@@ -1040,24 +1064,175 @@ def main() -> int:
     return 0
 
 
-def drive_paths(torch, model, paths, ladder) -> dict:
+def write_tiktoken(path: str, ranks: dict) -> None:
+    """``ranks`` in the tiktoken rank-file format (one base64 token and its
+    rank a line, as tokenizer.load_tiktoken_ranks reads it)."""
+    import base64
+    with open(path, 'w') as f:
+        for token, rank in sorted(ranks.items(), key=lambda kv: kv[1]):
+            f.write(f'{base64.b64encode(token).decode()} {rank}\n')
+
+
+def checkpoint_paths(torch, model, ranks, audio, ladder) -> dict:
+    """Write ``model``'s weights as an OpenAI ``large-v3.pt`` beside a
+    ``multilingual.tiktoken`` of ``ranks``; load it back with ``load_model``
+    (bf16, on the card) and fail unless every parameter, the heads the file
+    name resolves to and the vocabulary are the sources'. Then, on the
+    loaded model, the 'new aligner' path (10 s greedy with the legacy
+    aligner and known heads, then with aligner='new', on the same clip)
+    and the 'extra models' path (the same legacy request with a second
+    large-v3 of seed 1 as the extra model, which must add its 32 encoder
+    and 32 capture-pass flash launches a window); then one window's
+    encoder and 'new' aligner pass under ``profile_trace``, whose Chrome
+    trace must name the flash and DTW kernels. Returns the paths' kernel
+    launches."""
+    import tempfile
+    from stable_ts_tpu_torch import load_model
+    from stable_ts_tpu_torch.constants import N_FRAMES, N_SAMPLES
+    from stable_ts_tpu_torch.loaders import WhisperTorch
+    from stable_ts_tpu_torch.models.whisper import alignment_heads
+    from stable_ts_tpu_torch.models.whisper.load import save_openai_checkpoint
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.models.whisper.timing import find_alignment
+    from stable_ts_tpu_torch.ops.mel import log_mel_spectrogram
+    from stable_ts_tpu_torch.profiling import profile_trace
+    dims = model.dims
+    counts = {}
+
+    def add(path_counts):
+        for name, n in path_counts.items():
+            counts[name] = counts.get(name, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, MODEL + '.pt')
+        vocab = os.path.join(tmp, 'multilingual.tiktoken')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_openai_checkpoint(path, dims, model.params)
+        write_s = time.perf_counter() - t0
+        write_tiktoken(vocab, ranks)
+        log(f'[checkpoint] wrote {MODEL}.pt (bf16, OpenAI layout): '
+            f'{os.path.getsize(path) / 1e9:.3f} GB in {write_s:.3f} s')
+        t0 = time.perf_counter()
+        loaded = load_model(path, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        src = dict(model.params.named_parameters())
+        got = dict(loaded.params.named_parameters())
+        unequal = sorted(set(src) ^ set(got)) + [
+            n for n in src if n in got and not (got[n].dtype == src[n].dtype
+                                                and torch.equal(got[n], src[n]))]
+        if unequal:
+            raise AssertionError(f'loaded checkpoint differs from its source: {unequal[:5]}')
+        want_heads = alignment_heads.get_alignment_heads(
+            MODEL, dims.n_text_layer, dims.n_text_head)
+        if loaded.alignment_heads != want_heads:
+            raise AssertionError(f'heads from the file name: {loaded.alignment_heads}')
+        if loaded._vocab_path != vocab or loaded.get_tokenizer('en').bpe.ranks != ranks:
+            raise AssertionError(f'tokenizer not from the file beside the checkpoint: '
+                                 f'{loaded._vocab_path}')
+        log(f'[checkpoint] load_model(dtype=bfloat16) on {loaded.device} in '
+            f'{load_s:.3f} s: {len(src)} parameters torch.equal to the source, '
+            f'{len(want_heads or ())} heads from the name {MODEL!r}, the vocabulary '
+            f'from {os.path.basename(vocab)} beside it')
+
+        clip = audio[:10 * SR]
+        greedy = dict(language='en', temperature=0)
+        need = ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
+                'dtw_cost')
+        reqs = []
+        add(drive_paths(torch, loaded, [
+            ('new aligner', [('10 s greedy, legacy aligner, known heads', clip, greedy),
+                             ("10 s greedy, aligner='new'", clip,
+                              dict(greedy, aligner='new'))],
+             None, need)], ladder, reqs))
+        legacy, new = reqs
+        missing = [k for k in need if new['launches'].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"aligner='new' request launched no {missing}")
+        log(f'[new aligner] word timing of the same 10 s (one window each): legacy '
+            f'{legacy["word_timing_s"]:.3f} s, peak +{legacy["word_timing_peak_bytes"] / 1e9:.3f} '
+            f'GB; new {new["word_timing_s"]:.3f} s, peak '
+            f'+{new["word_timing_peak_bytes"] / 1e9:.3f} GB')
+
+        t0 = time.perf_counter()
+        extra = WhisperTorch(dims, init_params(dims, seed=1, dtype=torch.bfloat16,
+                                               device='cuda'),
+                             device='cuda', name=MODEL + '-seed1', ranks=ranks,
+                             alignment_heads=want_heads)
+        torch.cuda.synchronize()
+        log(f'[model] extra model {extra} built in {time.perf_counter() - t0:.1f} s')
+        reqs = []
+        add(drive_paths(torch, loaded, [
+            ('extra models', [('10 s greedy, legacy aligner, known heads, '
+                               'extra_models=[large-v3 seed 1]', clip,
+                               dict(greedy, extra_models=[extra]))],
+             None, ('flash_attn', 'dtw_cost'))], ladder, reqs))
+        (mixed,) = reqs
+        per_window = [r['launches'].get('flash_attn', 0) / max(r['windows'], 1)
+                      for r in (legacy, mixed)]
+        log(f'[extra models] flash launches a window: {per_window[1]:.1f} with the extra '
+            f'model, {per_window[0]:.1f} without; word timing {mixed["word_timing_s"]:.3f} s, '
+            f'peak +{mixed["word_timing_peak_bytes"] / 1e9:.3f} GB')
+        # its encoder layers and its capture pass's cross layers (64 at large-v3)
+        want = extra.dims.n_audio_layer + extra.dims.n_text_layer
+        if per_window[1] - per_window[0] < want:
+            raise AssertionError(f'the extra model added fewer than {want} flash '
+                                 'launches a window')
+
+        tokenizer = loaded.get_tokenizer('en', 'transcribe')
+        text_tokens = tokenizer.encode(' a synthetic clip of speech-like noise')
+        mel = log_mel_spectrogram(clip, dims.n_mels, padding=N_SAMPLES - clip.shape[-1],
+                                  device=loaded.device)[..., :N_FRAMES]
+        trace_dir = os.path.join(tmp, 'trace')
+        with profile_trace(trace_dir):
+            feats = loaded.embed_audio(mel)
+            find_alignment(loaded.params, dims, tokenizer, text_tokens, mel,
+                           clip.shape[-1], audio_features=feats, aligner='new')
+        (trace,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace)) as f:
+            events = json.load(f)['traceEvents']
+        kernels = {e['name'] for e in events if e.get('cat') == 'kernel'}
+        found = {key: sorted(n for n in kernels if key in n)[:2]
+                 for key in ('flash_fwd', 'dtw_cost_kernel')}
+        log(f'[profile] profile_trace of one window (embed_audio + find_alignment, '
+            f"aligner='new'): {os.path.getsize(os.path.join(trace_dir, trace)) / 1e6:.1f} MB, "
+            f'{len(events)} events, {len(kernels)} kernel names; {found}')
+        if not all(found.values()):
+            raise AssertionError(f'the trace names no flash or DTW kernel: {found}')
+    del loaded, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def drive_paths(torch, model, paths, ladder, requests_out=None) -> dict:
     """Drive ``paths`` on ``model``: each is (name, requests, options,
     kernels it must launch), a request (label, clip) or (label, clip,
-    options). Returns the kernel launches summed over the paths."""
+    options). Returns the kernel launches summed over the paths; each
+    request's own launches, window count (encoder passes), word-timing
+    seconds and word-timing peak device memory over what was resident go
+    to ``requests_out`` when given."""
     from stable_ts_tpu_torch import _build
     # host-clock phase split (each phase ends in a device synchronize); the
     # decoder steps are counted at decoding.decoder_step
     import stable_ts_tpu_torch.models.whisper.decoding as decoding
     import stable_ts_tpu_torch.transcribe as driver
-    phases, rungs, steps = {}, [], [0]
+    phases, rungs, steps, calls, peak = {}, [], [0], {}, [0]
 
     def timed(fn, phase):
         def inner(*a, **kw):
             torch.cuda.synchronize()
+            if phase == 'word_timing':
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
             t = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             phases[phase] = phases.get(phase, 0.0) + time.perf_counter() - t
+            calls[phase] = calls.get(phase, 0) + 1
+            if phase == 'word_timing':
+                peak[0] = max(peak[0], torch.cuda.max_memory_allocated() - resident)
             if phase == 'decode':
                 opts = a[1]
                 rungs.append((opts.temperature, opts.best_of, opts.beam_size))
@@ -1083,7 +1258,9 @@ def drive_paths(torch, model, paths, ladder) -> dict:
                 duration = clip.shape[-1] / SR
                 phases.clear()
                 rungs.clear()
-                steps[0] = 0
+                calls.clear()
+                steps[0] = peak[0] = 0
+                before = _build.launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 result = model.transcribe(clip, verbose=None, **opts)
@@ -1100,7 +1277,16 @@ def drive_paths(torch, model, paths, ladder) -> dict:
                     f'{sorted(set(rungs), key=str)}, {steps[0]} decoder steps '
                     f'({phases["decode"] / (steps[0] + len(rungs)) * 1e3:.2f} ms per '
                     f'step or prefill); {split}, other '
-                    f'{wall - sum(phases.values()):.3f} s')
+                    f'{wall - sum(phases.values()):.3f} s; word-timing peak '
+                    f'+{peak[0] / 1e9:.3f} GB over the resident '
+                    f'{torch.cuda.memory_allocated() / 1e9:.3f} GB')
+                if requests_out is not None:
+                    after = _build.launch_counts()
+                    requests_out.append(dict(
+                        label=label, windows=calls.get('encode', 0),
+                        word_timing_s=phases.get('word_timing', 0.0),
+                        word_timing_peak_bytes=peak[0],
+                        launches={k: after[k] - before.get(k, 0) for k in after}))
             path_counts = _build.launch_counts()
             log(f'[{path}] kernel launches on this path: {path_counts}')
             for name in needed:

@@ -1,17 +1,22 @@
 """stable_ts_tpu_torch: the PyTorch + CUDA port of stable_ts_tpu.
 
-The ``transcribe`` path (log-mel -> encoder -> language detection ->
-greedy, sampled (temperature ladder with best_of) or beam-search decoding
-under the timestamp grammar -> cross-attention DTW word timing -> SRT) and
-the train step (teacher-forced cross-entropy, AdamW) run in PyTorch on one
-NVIDIA Hopper GPU, with hand-written CUDA kernels where the JAX package
-runs Pallas kernels on the TPU (flash attention and its backward, self- and
-cross-attention decode with their beam and window-group entries, the
-greedy logit epilogue, the DTW cost, the int8 weight-only matmul of
-``dq`` models, the streamed vocab projection). The framework-free host
-code (audio loading, results, regrouping, silence suppression, text
-output, the tokenizer) is the port's own copy of ``stable_ts_tpu``'s: this
-package imports nothing of ``stable_ts_tpu`` and nothing of jax.
+``load_model`` reads Whisper checkpoints (OpenAI ``.pt``, HF and MLX
+directories) onto one NVIDIA Hopper GPU, or the CPU when asked. The
+``transcribe`` path (log-mel -> encoder -> language detection -> greedy,
+sampled (temperature ladder with best_of) or beam-search decoding under
+the timestamp grammar -> cross-attention DTW word timing, with the legacy
+or the 'new' aligner and optional extra models -> SRT), its
+``transcribe_minimal`` variant and the train step (teacher-forced
+cross-entropy, AdamW) run in PyTorch, with hand-written CUDA kernels where
+the JAX package runs Pallas kernels on the TPU (flash attention and its
+backward, self- and cross-attention decode with their beam and
+window-group entries, the greedy logit epilogue, the DTW cost, the int8
+weight-only matmul of ``dq`` models, the streamed vocab projection).
+``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``
+(``profiling.py``). The framework-free host code (audio loading, results,
+regrouping, silence suppression, text output, the tokenizer) is the
+port's own copy of ``stable_ts_tpu``'s: this package imports nothing of
+``stable_ts_tpu`` and nothing of jax.
 """
 from ._version import __version__
 from .utils import tune_host_allocator as _tune_host_allocator
@@ -25,10 +30,18 @@ from .text_output import (result_to_srt_vtt, result_to_ass, result_to_tsv,
                           result_to_txt, save_as_json, load_result)
 
 _LAZY = {
+    'load_model': 'stable_ts_tpu_torch.loaders',
+    'load_hf_whisper': 'stable_ts_tpu_torch.loaders',
+    'load_mlx_whisper': 'stable_ts_tpu_torch.loaders',
+    'modify_model': 'stable_ts_tpu_torch.loaders',
+    'NonSpeechPredictor': 'stable_ts_tpu_torch.stabilization',
+    'visualize_suppression': 'stable_ts_tpu_torch.stabilization',
+    'IS_WHISPERLESS_VERSION': 'stable_ts_tpu_torch.constants',
     'WhisperTorch': 'stable_ts_tpu_torch.loaders',
     'load_test_model': 'stable_ts_tpu_torch.loaders',
     'from_jax': 'stable_ts_tpu_torch.loaders',
     'transcribe_stable': 'stable_ts_tpu_torch.transcribe',
+    'transcribe_minimal': 'stable_ts_tpu_torch.transcribe',
     'make_train_step': 'stable_ts_tpu_torch.models.whisper.train',
     'cross_entropy_loss': 'stable_ts_tpu_torch.models.whisper.train',
     'launch_counts': 'stable_ts_tpu_torch._build',

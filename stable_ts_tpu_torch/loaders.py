@@ -1,16 +1,18 @@
-"""The user-facing model wrapper of the port (counterpart of
-stable_ts_tpu/loaders.py:WhisperTPU, the method surface ``transcribe``
-uses).
+"""Model loading and the user-facing model wrapper of the port
+(counterpart of stable_ts_tpu/loaders.py: ``WhisperTPU``, ``load_model``,
+``modify_model``).
 
 A model lives on one explicit device, the GPU unless the caller asks for
 ``device='cpu'``. Asking for ``cuda`` on a machine without a GPU raises;
 nothing moves to the CPU behind the caller's back.
-Checkpoint loading waits for weights in the repository (ROADMAP.md);
+:func:`load_model` reads an OpenAI ``.pt`` file, an HF directory or an
+MLX directory (``models/whisper/load.py``), by path or by name;
 :func:`load_test_model` and :func:`from_jax` build models from a seed or
 from a JAX model's weights. ``dq=True`` quantizes the q/k/v/out/fc1/fc2
 linears to int8 weights with per-output-channel scales on the model's
 device (stable_ts_tpu/loaders.py:41-47).
 """
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -18,12 +20,15 @@ import torch
 
 from .models.whisper.decoding import (DecodingOptions, decode as _decode,
                                       detect_language as _detect_language)
-from .models.whisper.dims import ModelDimensions, tiny_test_dims
+from .models.whisper.dims import (OPENAI_MODEL_DIMS, ModelDimensions,
+                                   tiny_test_dims)
 from .models.whisper.model import (Whisper, encoder_apply, init_params,
                                    resolve_device)
 from .models.whisper.quantization import is_quantized, quantize_params
 from .models.whisper.tokenizer import (WhisperTokenizer, get_tokenizer,
                                        synthetic_byte_ranks)
+
+_VOCAB_CANDIDATES = ('multilingual.tiktoken', 'gpt2.tiktoken', 'vocab.json')
 
 
 class WhisperTorch:
@@ -129,6 +134,10 @@ class WhisperTorch:
         from .transcribe import transcribe_stable
         return transcribe_stable(self, audio, **kwargs)
 
+    def transcribe_minimal(self, audio, **kwargs):
+        from .transcribe import transcribe_minimal
+        return transcribe_minimal(self, audio, **kwargs)
+
 
 def load_test_model(seed: int = 0, device='cuda', **kwargs) -> WhisperTorch:
     """A miniature random-weight model (tiny_test_dims, drawn from a torch
@@ -153,3 +162,118 @@ def from_jax(model_tpu, device='cuda') -> WhisperTorch:
         dims, from_jax_params(model_tpu.params, dims, device=device),
         device=device, name=model_tpu.name, vocab_path=model_tpu._vocab_path,
         ranks=model_tpu._ranks, alignment_heads=model_tpu.alignment_heads)
+
+
+def _find_vocab(checkpoint_path: str) -> Optional[str]:
+    """A vocabulary file in $STABLE_TS_TPU_VOCAB_DIR, beside the checkpoint
+    (inside it, for a directory), or in the directory above: the JAX
+    package hands its search the checkpoint's directory and so looks only
+    there (loaders.py:295)."""
+    path = os.path.abspath(checkpoint_path)
+    here = path if os.path.isdir(path) else os.path.dirname(path)
+    search_dirs = [here, os.path.dirname(here)]
+    if os.environ.get('STABLE_TS_TPU_VOCAB_DIR'):
+        search_dirs.insert(0, os.environ['STABLE_TS_TPU_VOCAB_DIR'])
+    for d in search_dirs:
+        for name in _VOCAB_CANDIDATES:
+            p = os.path.join(d, name)
+            if os.path.isfile(p):
+                return p
+    return None
+
+
+def load_model(name_or_path: str, *, vocab_path: Optional[str] = None,
+               dtype=None,
+               alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
+               download_root: Optional[str] = None, dq: bool = False,
+               device='cuda', **_ignored) -> WhisperTorch:
+    """Load a Whisper model onto ``device`` from an OpenAI .pt file, an HF
+    directory, an MLX directory, or a model name resolved inside
+    ``download_root`` / $STABLE_TS_TPU_MODELS / ~/.cache/whisper.
+
+    ``dtype=None`` gives f32 weights, ``torch.bfloat16`` bf16. A model name
+    the alignment-head table knows (from the name or the file name) gets
+    its canonical heads; any other keeps None and selects heads
+    dynamically. The vocabulary comes from ``vocab_path``, or a
+    ``multilingual.tiktoken`` / ``gpt2.tiktoken`` / ``vocab.json`` in
+    $STABLE_TS_TPU_VOCAB_DIR or beside the checkpoint."""
+    from .models.whisper.load import (is_mlx_checkpoint_dir, load_hf_checkpoint,
+                                      load_mlx_checkpoint, load_openai_checkpoint)
+    device = resolve_device(device)
+    path = name_or_path
+    if not os.path.exists(path):
+        roots = [download_root, os.environ.get('STABLE_TS_TPU_MODELS'),
+                 os.path.expanduser('~/.cache/whisper')]
+        for root in filter(None, roots):
+            candidate = os.path.join(root, f'{name_or_path}.pt')
+            if os.path.isfile(candidate):
+                path = candidate
+                break
+        else:
+            known = ', '.join(sorted(OPENAI_MODEL_DIMS))
+            raise FileNotFoundError(
+                f'checkpoint not found for {name_or_path!r}. Provide a path to '
+                f'an OpenAI .pt file or an HF or MLX model directory. Known '
+                f'model names (searched in download_root / '
+                f'$STABLE_TS_TPU_MODELS / ~/.cache/whisper): {known}')
+    if os.path.isdir(path):
+        loader = (load_mlx_checkpoint if is_mlx_checkpoint_dir(path)
+                  else load_hf_checkpoint)
+    else:
+        loader = load_openai_checkpoint
+    dims, params = loader(path, dtype=dtype, device=device)
+    if alignment_heads is None:
+        # canonical per-model heads; checkpoints the table does not know
+        # keep None and select heads dynamically (timing.py)
+        from .models.whisper.alignment_heads import (get_alignment_heads,
+                                                     resolve_model_name)
+        known = resolve_model_name(name_or_path) or resolve_model_name(path)
+        if known:
+            alignment_heads = get_alignment_heads(
+                known, dims.n_text_layer, dims.n_text_head)
+    if vocab_path is None:
+        vocab_path = _find_vocab(path)
+    if vocab_path is None and dims.n_vocab >= 51864:
+        raise FileNotFoundError(
+            'no tokenizer vocabulary found: place multilingual.tiktoken / '
+            'gpt2.tiktoken / vocab.json next to the checkpoint, set '
+            '$STABLE_TS_TPU_VOCAB_DIR, or pass vocab_path=.')
+    return WhisperTorch(dims, params, device=device, name=os.path.basename(path),
+                        vocab_path=vocab_path, alignment_heads=alignment_heads,
+                        dq=dq)
+
+
+def load_hf_whisper(name_or_path: str, **kwargs) -> WhisperTorch:
+    """Load an HF Whisper directory (alias with the reference's loader name)."""
+    return load_model(name_or_path, **kwargs)
+
+
+def load_mlx_whisper(name_or_path: str, **kwargs) -> WhisperTorch:
+    """Load an MLX-community Whisper directory onto the port's engine (the
+    reference runs these on Apple's MLX runtime; here the directory is one
+    more weight format, ``models/whisper/load.py:load_mlx_checkpoint``)."""
+    return load_model(name_or_path, **kwargs)
+
+
+def load_faster_whisper(model_size_or_path: str, **model_init_options):
+    """The faster-whisper backend is still to be ported (ROADMAP.md)."""
+    raise NotImplementedError('load_faster_whisper is still to be ported to '
+                              'stable_ts_tpu_torch (ROADMAP.md)')
+
+
+def modify_model(model):
+    """Give ``model`` the stabilized method surface (the reference's
+    ``modify_model``, original_whisper.py:931). A :class:`WhisperTorch`
+    carries every method already and passes through unchanged; a
+    faster-whisper model waits for its backend (ROADMAP.md) and raises
+    ``NotImplementedError``; anything else raises ``TypeError``."""
+    if isinstance(model, WhisperTorch):
+        return model
+    if (not hasattr(model, 'params') and hasattr(model, 'feature_extractor')
+            and hasattr(model, 'model')):
+        raise NotImplementedError('faster-whisper models are still to be '
+                                  'ported to stable_ts_tpu_torch (ROADMAP.md)')
+    raise TypeError(
+        f'cannot modify {type(model).__name__!r}: expected a WhisperTorch. '
+        'Other ASR engines plug in through transcribe_any / Aligner / '
+        'Refiner, still to be ported (ROADMAP.md).')

@@ -71,6 +71,23 @@ def jax_state_dict(params: dict, dims: ModelDimensions) -> dict:
 
 
 @torch.no_grad()
+def copy_state(model: torch.nn.Module, state: dict, to_tensor) -> None:
+    """Copy ``state`` (name -> array) into ``model``'s parameters and
+    buffers, ``to_tensor(value, target)`` making each source tensor. The
+    names must be the model's, and every shape its target's."""
+    names = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    if set(names) != set(state):
+        raise ValueError(f'parameter mismatch: missing '
+                         f'{sorted(set(names) - set(state))}, unexpected '
+                         f'{sorted(set(state) - set(names))}')
+    for name, p in names.items():
+        src = to_tensor(state[name], p)
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f'{name}: shape {tuple(src.shape)} != {tuple(p.shape)}')
+        p.copy_(src)
+
+
+@torch.no_grad()
 def from_jax_params(params: dict, dims: ModelDimensions,
                     device='cuda') -> Whisper:
     """The port's model on ``device`` holding the same weights as a JAX
@@ -86,16 +103,7 @@ def from_jax_params(params: dict, dims: ModelDimensions,
     model = Whisper(dims, device='meta', dtype=dtype).to_empty(device=device)
     if any(name.endswith('.scale') for name in state):
         quantize_params(model, empty=True)
-    names = {**dict(model.named_parameters()), **dict(model.named_buffers())}
-    if set(names) != set(state):
-        raise ValueError(f'parameter mismatch: missing '
-                         f'{sorted(set(names) - set(state))}, unexpected '
-                         f'{sorted(set(state) - set(names))}')
-    for name, p in names.items():
-        # a writable copy: int8 values exactly, floats through f32
-        arr = np.array(state[name], dtype=np.int8 if p.dtype == torch.int8
-                       else np.float32)
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f'{name}: shape {arr.shape} != {tuple(p.shape)}')
-        p.copy_(torch.from_numpy(arr))
+    # a writable copy: int8 values exactly, floats through f32
+    copy_state(model, state, lambda v, p: torch.from_numpy(np.array(
+        v, dtype=np.int8 if p.dtype == torch.int8 else np.float32)))
     return model.requires_grad_(False)

@@ -1,6 +1,7 @@
 """Word-level timestamps from cross-attention + DTW (port of
-stable_ts_tpu/models/whisper/timing.py, the legacy aligner with known or
-dynamically selected alignment heads).
+stable_ts_tpu/models/whisper/timing.py: the legacy aligner with known or
+dynamically selected alignment heads, the 'new' aligner, and extra
+models).
 
 One teacher-forced decoder pass captures raw cross-attention QK
 (:func:`compute_qks_and_probs`). With known heads it captures only those,
@@ -10,14 +11,16 @@ boundary and median filtered (:func:`legacy_head_weights`). With no known
 heads, or when ``dynamic_heads`` asks for it, it captures every head; the
 frame axis is cropped on the device, downloaded in bf16 and widened on the
 host, where :func:`_dynamic_head_weights` picks each token's best-peaked
-heads (the reference's selection, NumPy as in the JAX package). Either way
-the DTW cost comes from the kernel (``ops/dtw.py``), and the host walks the
-traceback for the per-token jump frames. The word splitting and assembly
-helpers below are host code, carried over because their JAX module imports
-jax.
-
-The 'new' aligner and ``extra_models`` are not ported yet (ROADMAP.md) and
-raise ``NotImplementedError``.
+heads (the reference's selection, NumPy as in the JAX package). The 'new'
+aligner (arXiv 2509.09987) also captures every head and scores them on
+the device, a chunk of heads at a time (:func:`new_aligner_matrix`); the
+capture never goes to the host. ``extra_models`` each take their own
+capture pass on the same mel and select their own heads; their weights
+join the main model's before the head mean and their token probabilities
+average in. Either way the DTW cost comes from the kernel
+(``ops/dtw.py``), and the host walks the traceback for the per-token jump
+frames. The word splitting and assembly helpers below are host code,
+carried over because their JAX module imports jax.
 """
 import string
 from dataclasses import dataclass
@@ -182,6 +185,155 @@ def _np_median_filter(x: np.ndarray, width: int) -> np.ndarray:
     return np.median(windows, axis=-1)
 
 
+def _np_softmax(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    e = np.exp(x - x.max(axis=axis, keepdims=True))
+    return e / e.sum(axis=axis, keepdims=True)
+
+
+# device bytes one head of the 'new' aligner's scoring takes per (row,
+# frame): the f32 weights, the median filter's sorted window of 7 (values
+# and int64 indices) and its copies
+_NEW_ALIGNER_BYTES_PER_CELL = 4 * 8 + 7 * 12 * 2
+_NEW_ALIGNER_CHUNK_BYTES = 1 << 30
+
+
+def new_aligner_head_chunk(n_rows: int, n_frames: int) -> int:
+    """Heads scored at once by :func:`new_aligner_matrix`: as many as fit
+    in about 1 GiB of working memory (all 640 heads of a large-v3 window
+    at once would take tens of GB)."""
+    per_head = n_rows * n_frames * _NEW_ALIGNER_BYTES_PER_CELL
+    return max(1, _NEW_ALIGNER_CHUNK_BYTES // max(per_head, 1))
+
+
+def _new_aligner_weights(qks: torch.Tensor, src: torch.Tensor,
+                         col_ok: torch.Tensor, qk_scale: float,
+                         medfilt_width: int) -> torch.Tensor:
+    """(n, T, F) raw QK -> the 'new' aligner's f32 head weights: the raw
+    columns reflected at the crop (the reference filters the cropped
+    capture, timing.py:138-141), median filtered, then soft-maxed over
+    the real frames; columns past the crop hold 0."""
+    w = qks.float()[..., src]
+    w = median_filter(w, medfilt_width)
+    w = torch.where(col_ok, w * qk_scale, -torch.inf)
+    w = torch.softmax(w, dim=-1)
+    return torch.where(col_ok, w, 0.0)
+
+
+def _new_aligner_scores(w: torch.Tensor, w_colnorm: float, w_rownorm: float,
+                        w_coverage: float) -> torch.Tensor:
+    """(n, T, F) head weights -> (n,) scores: column and row norms, less
+    the coverage penalty (timing.py:458-466)."""
+    scores = torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+    if w_colnorm > 0:
+        scores = scores + w_colnorm * torch.linalg.vector_norm(w, dim=-2).sum(-1)
+    if w_rownorm > 0:
+        scores = scores + w_rownorm * torch.linalg.vector_norm(w, dim=-1).sum(-1)
+    if w_coverage > 0:
+        coverage = w.sum(dim=1)
+        penalty = torch.clamp(coverage, min=0.5).sum(-1) - coverage.shape[-1] * 0.5
+        scores = scores - w_coverage * penalty
+    return scores
+
+
+@torch.inference_mode()
+def new_aligner_top_heads(qks: torch.Tensor, max_qk_len: int, qk_scale: float,
+                          medfilt_width: int, topk: int, w_colnorm: float,
+                          w_rownorm: float, w_coverage: float,
+                          head_chunk: Optional[int] = None):
+    """Score all L·H heads of qks (L, H, T, F) by column and row norms (and
+    coverage) on qks's device (timing.py:440-466); returns the top-k heads'
+    flat indices (L·H order) and their weights (k, T, F) f32, ordered as
+    ``lax.top_k`` orders them (score descending, the lower index first on
+    ties). Columns >= max_qk_len of the weights are 0.
+
+    The heads are filtered and scored ``head_chunk`` at a time (default:
+    :func:`new_aligner_head_chunk`), keeping the best k as the chunks
+    pass; each head's score is its own, so the result does not depend on
+    the chunk."""
+    L, H, T, F = qks.shape
+    flat = qks.reshape(L * H, T, F)
+    src = reflect_src(max_qk_len, F, qks.device)
+    col_ok = torch.arange(F, device=qks.device) < max_qk_len
+    chunk = head_chunk or new_aligner_head_chunk(T, F)
+    best_scores = best_idx = best_w = None
+    for start in range(0, L * H, chunk):
+        w = _new_aligner_weights(flat[start:start + chunk], src, col_ok,
+                                 qk_scale, medfilt_width)
+        scores = _new_aligner_scores(w, w_colnorm, w_rownorm, w_coverage)
+        idx = torch.arange(start, start + w.shape[0], device=qks.device)
+        if best_w is not None:
+            w = torch.cat([best_w, w])
+            scores = torch.cat([best_scores, scores])
+            idx = torch.cat([best_idx, idx])
+        # index order first, then a stable sort by score
+        order = torch.sort(idx)[1]
+        order = order[torch.sort(-scores[order], stable=True)[1]][:topk]
+        best_w, best_scores, best_idx = w[order], scores[order], idx[order]
+    return best_idx, best_w
+
+
+def _new_aligner_matrix(qks: torch.Tensor, max_qk_len: int, sot_len: int,
+                        qk_scale: float, medfilt_width: int, topk: int,
+                        w_colnorm: float, w_rownorm: float, w_coverage: float,
+                        head_chunk: Optional[int] = None) -> torch.Tensor:
+    """'new' aligner on the capture's device (timing.py:440-471): the mean
+    of the top-k heads' column-normalized weights
+    (:func:`new_aligner_top_heads`), (T - sot_len - 1, F) f32; columns >=
+    max_qk_len are 0."""
+    _, w = new_aligner_top_heads(qks, max_qk_len, qk_scale, medfilt_width, topk,
+                                 w_colnorm, w_rownorm, w_coverage, head_chunk)
+    col_norm = torch.linalg.vector_norm(w, dim=-2, keepdim=True)
+    matrix = (w / torch.where(col_norm == 0, 1.0, col_norm)).mean(dim=0)
+    return matrix[sot_len:-1]
+
+
+def _new_aligner_matrix_host(qks: np.ndarray, max_qk_len: int, sot_len: int,
+                             qk_scale: float, medfilt_width: int, topk: int,
+                             w_colnorm: float, w_rownorm: float,
+                             w_coverage: float) -> np.ndarray:
+    """Short-window 'new' aligner on the host: crop BEFORE the median
+    filter and softmax, the reference's order (timing.py:474-497)."""
+    L, H, T, F = qks.shape
+    w = np.asarray(qks, np.float32).reshape(L * H, T, F)[..., :max_qk_len]
+    w = _np_median_filter(w, medfilt_width)
+    w = _np_softmax(w * qk_scale)
+    scores = np.zeros(L * H)
+    if w_colnorm > 0:
+        scores += w_colnorm * np.linalg.norm(w, axis=-2).sum(-1)
+    if w_rownorm > 0:
+        scores += w_rownorm * np.linalg.norm(w, axis=-1).sum(-1)
+    if w_coverage > 0:
+        coverage = w.sum(axis=1)
+        scores -= w_coverage * (np.maximum(coverage, 0.5).sum(-1)
+                                - coverage.shape[-1] * 0.5)
+    top_idxs = np.argsort(-scores)[:topk]
+    matrix = w[top_idxs]
+    col_norm = np.linalg.norm(matrix, axis=-2, keepdims=True)
+    matrix = (matrix / np.where(col_norm == 0, 1.0, col_norm)).mean(axis=0)
+    return matrix[sot_len:-1]
+
+
+def new_aligner_matrix(qks, max_qk_len: int, sot_len: int, qk_scale: float,
+                       medfilt_width: int, topk: int, w_colnorm: float,
+                       w_rownorm: float, w_coverage: float,
+                       head_chunk: Optional[int] = None):
+    """'new' aligner matrix cropped to ``max_qk_len`` (timing.py:500-519).
+
+    A tensor stays on its device for any window length (the raw reflect
+    continuation reproduces the reference's crop-first median filter);
+    the result keeps the full frame width: bound the DTW at
+    ``max_qk_len``. NumPy input keeps the reference-order host path for
+    short windows."""
+    if isinstance(qks, torch.Tensor) or max_qk_len >= qks.shape[-1]:
+        m = _new_aligner_matrix(
+            torch.as_tensor(qks), max_qk_len, sot_len, qk_scale,
+            medfilt_width, topk, w_colnorm, w_rownorm, w_coverage, head_chunk)
+        return m if isinstance(qks, torch.Tensor) else m.numpy()
+    return _new_aligner_matrix_host(
+        np.asarray(qks), max_qk_len, sot_len, qk_scale, medfilt_width, topk,
+        w_colnorm, w_rownorm, w_coverage)
+
+
 def matrix_to_jumps(matrix: torch.Tensor, m: Optional[int] = None) -> np.ndarray:
     """DTW over -matrix (device cost, host traceback) -> per-token jump
     frames; ``m`` bounds the walk to the first m frame columns."""
@@ -189,6 +341,53 @@ def matrix_to_jumps(matrix: torch.Tensor, m: Optional[int] = None) -> np.ndarray
     m = m_full if m is None else min(m, m_full)
     cost = dtw_cost(-matrix.float()).cpu().numpy()
     return dtw_jumps(cost, n, m)
+
+
+def _extra_model_weights(extra_models, tokenizer, text_tokens, mel, sot_len: int,
+                         max_qk_len: int, qk_scale: float, medfilt_width: int,
+                         dynamic_count: Optional[int]):
+    """Each extra model's capture pass on ``mel`` and its own head weights
+    (timing.py:614-640): dynamic, top-1 peaks and never iterated, when the
+    main pass is dynamic or the model knows no heads; else its known heads
+    through :func:`legacy_head_weights` (a selective capture). Returns
+    (host weights, one (n, T', frames) array a model, token probabilities
+    a model)."""
+    if mel is None:
+        raise ValueError('extra_models need the mel segment '
+                         '(precomputed audio_features are per-model)')
+    weights, probs = [], []
+    for em in extra_models:
+        device = em.params.decoder.token_emb.device
+        if device != mel.device:
+            raise ValueError(f'extra model {em.name!r} is on {device}, the mel '
+                             f'on {mel.device}: put every model on one device')
+        count = dynamic_count or (None if em.alignment_heads is not None else 6)
+        if count:
+            eqks, eprobs, _ = compute_qks_and_probs(
+                em.params, em.dims, tokenizer, text_tokens, mel=mel)
+            ew = _dynamic_head_weights(
+                eqks[..., :max(max_qk_len, 1)].cpu().float().numpy(), sot_len,
+                max_qk_len, qk_scale, medfilt_width, count, None)
+        else:
+            capture_index, slots = build_head_capture_table(
+                em.alignment_heads, em.dims.n_text_layer)
+            eqks, eprobs, _ = compute_qks_and_probs(
+                em.params, em.dims, tokenizer, text_tokens, mel=mel,
+                capture_index=capture_index)
+            ew = legacy_head_weights(gather_captured_heads(eqks, slots),
+                                     max_qk_len, sot_len, qk_scale,
+                                     medfilt_width).cpu().numpy()
+        weights.append(ew)
+        probs.append(eprobs)
+    return weights, probs
+
+
+def _mix(weights: np.ndarray, extra_weights: List[np.ndarray],
+         max_qk_len: int) -> np.ndarray:
+    """Head mean over the main and the extra models' weights, each cropped
+    to the real frames first (timing.py:662-668, :681-685)."""
+    return np.concatenate([w[..., :max_qk_len] for w in [weights] + extra_weights],
+                          axis=0).mean(axis=0)
 
 
 def find_alignment(model, dims, tokenizer, text_tokens: List[int],
@@ -199,17 +398,20 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
                    alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
                    dynamic_heads=None, aligner='legacy',
                    extra_models=None) -> List[WordTimingRaw]:
-    """Align ``text_tokens`` to audio with the legacy aligner
-    (timing.py:522-700); per-word raw timings. When no ``alignment_heads``
-    are given and ``dynamic_heads`` is unset, 6 heads are selected
-    dynamically per token (the reference's missing-heads fallback)."""
-    if aligner != 'legacy':
-        raise NotImplementedError(
-            'stable_ts_tpu_torch aligns with the legacy aligner only; the '
-            '"new" aligner is still to be ported (ROADMAP.md)')
-    if extra_models:
-        raise NotImplementedError('extra_models are still to be ported '
-                                  '(ROADMAP.md)')
+    """Align ``text_tokens`` to audio (timing.py:522-700); per-word raw
+    timings. ``model`` is the weights (a :class:`~.model.Whisper`).
+
+    ``aligner``: 'legacy', or 'new' or a dict of the 'new' aligner's
+    settings (``topk``, ``w_colnorm``, ``w_rownorm``, ``w_coverage``). The
+    legacy aligner uses ``alignment_heads``; with none, and
+    ``dynamic_heads`` unset, it selects 6 heads per token dynamically (the
+    reference's missing-heads fallback). ``extra_models``
+    (:class:`~stable_ts_tpu_torch.loaders.WhisperTorch` on the mel's
+    device) each add their own heads' weights to the head mean and their
+    token probabilities to the average; the 'new' aligner ignores them,
+    as the reference does."""
+    if not (isinstance(aligner, dict) or aligner in ('new', 'legacy')):
+        raise ValueError(f'aligner must be "new"/"legacy" or a dict, got {aligner!r}')
     if token_split is None:
         words, word_tokens = tokenizer.split_to_word_tokens(
             list(text_tokens) + [tokenizer.eot])
@@ -221,14 +423,42 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
 
     sot_len = len(tokenizer.sot_sequence)
     max_qk_len = round(num_samples / N_SAMPLES_PER_TOKEN)
-    if dynamic_heads is None and alignment_heads is None:
-        dynamic_heads = True
-    dynamic_count, iterations = parse_dynamic_heads(dynamic_heads)
+    use_new = aligner != 'legacy'
+    new_kwargs = dict(topk=20, w_colnorm=1.0, w_rownorm=1.0, w_coverage=0.0)
+    if isinstance(aligner, dict):
+        new_kwargs.update(aligner)
+        use_new = True
+    dynamic_count, iterations = None, 1
+    if not use_new:
+        if dynamic_heads is None and alignment_heads is None:
+            dynamic_heads = True
+        dynamic_count, iterations = parse_dynamic_heads(dynamic_heads)
     with torch.inference_mode():
-        if dynamic_count:
-            qks, text_token_probs, _ = compute_qks_and_probs(
-                model, dims, tokenizer, text_tokens, mel=mel,
-                audio_features=audio_features)
+        capture_index = slots = None
+        if not use_new and not dynamic_count:
+            capture_index, slots = build_head_capture_table(alignment_heads,
+                                                            dims.n_text_layer)
+        qks, text_token_probs, _ = compute_qks_and_probs(
+            model, dims, tokenizer, text_tokens, mel=mel,
+            audio_features=audio_features, capture_index=capture_index)
+        extra_weights = []
+        if extra_models and not use_new:
+            extra_weights, extra_probs = _extra_model_weights(
+                extra_models, tokenizer, text_tokens, mel, sot_len, max_qk_len,
+                qk_scale, medfilt_width, dynamic_count)
+            text_token_probs = np.mean(
+                [np.asarray(text_token_probs)] +
+                [np.asarray(p) for p in extra_probs], axis=0)
+        if use_new:
+            matrix = new_aligner_matrix(
+                qks, max_qk_len, sot_len, qk_scale, medfilt_width,
+                topk=min(int(new_kwargs['topk']),
+                         dims.n_text_layer * dims.n_text_head),
+                w_colnorm=float(new_kwargs['w_colnorm']),
+                w_rownorm=float(new_kwargs['w_rownorm']),
+                w_coverage=float(new_kwargs['w_coverage']))
+            jump_indices = matrix_to_jumps(matrix, m=max_qk_len)
+        elif dynamic_count:
             # crop the frame axis on the device and download the crop in
             # bf16 (the full capture is hundreds of MB at large-v3); the
             # host widens it to f32, as the JAX package does
@@ -241,18 +471,18 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
                 weights = _dynamic_head_weights(
                     qks_np, sot_len, max_qk_len, qk_scale, medfilt_width,
                     dynamic_count, jump_indices)
+                matrix = (_mix(weights, extra_weights, max_qk_len)
+                          if extra_weights else weights.mean(axis=0))
                 jump_indices = matrix_to_jumps(
-                    torch.from_numpy(weights.mean(axis=0)).to(qks.device))
+                    torch.from_numpy(matrix).to(qks.device))
         else:
-            capture_index, slots = build_head_capture_table(alignment_heads,
-                                                            dims.n_text_layer)
-            qks, text_token_probs, _ = compute_qks_and_probs(
-                model, dims, tokenizer, text_tokens, mel=mel,
-                audio_features=audio_features, capture_index=capture_index)
             weights = legacy_head_weights(gather_captured_heads(qks, slots),
                                           max_qk_len, sot_len, qk_scale,
                                           medfilt_width)
-            jump_indices = matrix_to_jumps(weights.mean(dim=0), m=max_qk_len)
+            matrix = (torch.from_numpy(_mix(weights.cpu().numpy(), extra_weights,
+                                            max_qk_len)).to(qks.device)
+                      if extra_weights else weights.mean(dim=0))
+            jump_indices = matrix_to_jumps(matrix, m=max_qk_len)
 
     jump_times = jump_indices / TOKENS_PER_SECOND
     start_times = jump_times[word_boundaries[:-1]]

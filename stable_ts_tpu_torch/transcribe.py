@@ -25,6 +25,7 @@ from .utils import (decode_acceptable, format_timestamp,
 from .models.whisper.decoding import DecodingOptions, DecodingResult
 from .models.whisper.timing import add_word_timestamps
 from .ops.mel import log_mel_spectrogram
+from .profiling import traced
 
 
 def _pad_or_trim_mask(mask: np.ndarray, length: int) -> np.ndarray:
@@ -33,6 +34,7 @@ def _pad_or_trim_mask(mask: np.ndarray, length: int) -> np.ndarray:
     return np.pad(mask, (0, length - mask.shape[-1]))
 
 
+@traced('transcribe')
 def transcribe_stable(
         model,
         audio,
@@ -89,9 +91,6 @@ def transcribe_stable(
 ) -> WhisperResult:
     """Transcribe ``audio`` with stabilized word-level timestamps; the same
     parameters and behavior as stable_ts_tpu's ``transcribe_stable``."""
-    if extra_models:
-        raise NotImplementedError('extra_models are still to be ported to '
-                                  'stable_ts_tpu_torch (ROADMAP.md)')
     if 'beam_size' in decode_options and decode_options['beam_size'] is None:
         decode_options.pop('beam_size')
     if suppress_attention:
@@ -138,6 +137,15 @@ def transcribe_stable(
     task = decode_options.get('task', 'transcribe')
     if word_timestamps and task == 'translate':
         warnings.warn('Word-level timestamps on translations may not be reliable.')
+    if extra_models:
+        # the reference's same-engine check (timing.py:219-223)
+        from .loaders import WhisperTorch
+        bad = [m for m in extra_models if not isinstance(m, WhisperTorch)]
+        if bad:
+            raise NotImplementedError(
+                f'invalid model type(s) in extra_models: '
+                f'{set(map(type, bad))}; all extra models must be '
+                f'{type(model)} instances')
 
     tokenizer = None
     language = None
@@ -377,6 +385,7 @@ def transcribe_stable(
                 alignment_heads=model.alignment_heads,
                 dynamic_heads=dynamic_heads,
                 aligner=aligner,
+                extra_models=extra_models,
             )
             for i in reversed(range(len(current_segments))):
                 if not keep_segment_instant_rule(
@@ -492,3 +501,21 @@ def transcribe_stable(
         warnings.warn(f'Failed to {task} audio. Result contains no text.')
 
     return final_result
+
+
+def transcribe_minimal(model, audio, **kwargs) -> WhisperResult:
+    """Lightweight transcription: the plain decode loop with stabilization
+    post-processing only (counterpart of stable_ts_tpu's
+    ``transcribe_minimal``, the reference's original_whisper.py:784)."""
+    allowed = dict(
+        verbose=False, word_timestamps=True, regroup=True,
+        suppress_silence=True, suppress_word_ts=True, use_word_position=True,
+        q_levels=20, k_size=5, denoiser=None, denoiser_options=None,
+        vad=False, vad_threshold=0.35, min_word_dur=None,
+        min_silence_dur=None, nonspeech_error=0.1, only_voice_freq=False,
+    )
+    passthrough = {k: kwargs.pop(k) for k in list(kwargs)
+                   if k in allowed or k in ('language', 'task', 'temperature')}
+    if kwargs:
+        raise TypeError(f'got unexpected keyword argument(s): {", ".join(kwargs)}')
+    return transcribe_stable(model, audio, gap_padding=None, **passthrough)

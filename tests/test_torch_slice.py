@@ -15,8 +15,11 @@ decoding (the silence mask on greedy and beam steps, a prompt, resets,
 skips, clips, resuming, no regrouping, the voice band, translation) give
 equal text and SRT bytes too. A fresh interpreter that transcribes and
 takes a train step with the port loads neither jax, nor optax, nor any
-module of stable_ts_tpu; importing the port tunes the host allocator, as
-importing stable_ts_tpu does."""
+module of stable_ts_tpu; it also writes a checkpoint, loads it and
+transcribes with the 'new' aligner and with an extra model. Importing the
+port tunes the host allocator, as importing stable_ts_tpu does.
+``transcribe_minimal`` gives JAX's text and SRT bytes, and
+``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``."""
 import os
 import subprocess
 import sys
@@ -169,6 +172,13 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
         loss = train_step(params, opt, rng.standard_normal((1, 80, 3000)),
                           rng.integers(0, model.dims.n_vocab, (1, 8)))
         assert np.isfinite(float(loss))
+        from stable_ts_tpu_torch import load_model
+        from stable_ts_tpu_torch.models.whisper.load import save_openai_checkpoint
+        save_openai_checkpoint('tiny.pt', model.dims, model.params)
+        loaded = load_model('tiny.pt', device='cpu', alignment_heads={HEADS!r})
+        for kw in (dict(aligner='new'), dict(extra_models=[model])):
+            assert loaded.transcribe(audio, language='en', temperature=0,
+                                     verbose=None, **kw).segments
         assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
         assert 'optax' not in sys.modules
         old = sorted(m for m in sys.modules
@@ -228,10 +238,10 @@ def test_cuda_without_a_gpu_raises():
         WhisperTorch(tiny_test_dims(), cpu_params, device='cuda')
 
 
-def test_entry_points_default_to_the_gpu():
-    """load_test_model, from_jax, init_params and from_jax_params run on the
-    card unless asked for the CPU: with no GPU and no ``device``, each
-    raises."""
+def test_entry_points_default_to_the_gpu(tmp_path):
+    """load_test_model, from_jax, init_params, from_jax_params and
+    load_model run on the card unless asked for the CPU: with no GPU and no
+    ``device``, each raises."""
     if torch.cuda.is_available():
         pytest.skip('a GPU is present: the default device is legitimate here')
     from stable_ts_tpu.loaders import load_test_model as load_jax
@@ -240,9 +250,15 @@ def test_entry_points_default_to_the_gpu():
     from stable_ts_tpu_torch.models.whisper.dims import tiny_test_dims
     from stable_ts_tpu_torch.models.whisper.model import init_params
     jax_model = load_jax()
+    from stable_ts_tpu_torch import load_model
+    from stable_ts_tpu_torch.models.whisper.load import save_openai_checkpoint
+    path = str(tmp_path / 'tiny.pt')
+    save_openai_checkpoint(path, tiny_test_dims(),
+                           init_params(tiny_test_dims(), device='cpu'))
     for call in (load_test_model, lambda: from_jax(jax_model),
                  lambda: init_params(tiny_test_dims()),
-                 lambda: from_jax_params(jax_model.params, tiny_test_dims())):
+                 lambda: from_jax_params(jax_model.params, tiny_test_dims()),
+                 lambda: load_model(path)):
         with pytest.raises(RuntimeError, match='CUDA'):
             call()
 
@@ -276,3 +292,64 @@ def test_multilingual_without_language_detects_it():
     assert code in probs[0] and probs[0][code] == max(probs[0].values())
     (result,) = model.decode(mel, sample_len=4)
     assert result.language == code
+
+
+def test_transcribe_minimal_matches_jax(monkeypatch):
+    monkeypatch.setenv('STABLE_TS_TPU_CROSS', 'interpret')
+    monkeypatch.setenv('STABLE_TS_TPU_SELFKV', '1')
+    monkeypatch.setenv('STABLE_TS_TPU_EPI', '0')
+    from stable_ts_tpu.loaders import load_test_model as load_jax
+    from stable_ts_tpu_torch.loaders import from_jax
+    jax_model = load_jax(alignment_heads=HEADS)
+    port_model = from_jax(jax_model, device='cpu')
+    audio = _gapped_audio()
+    kw = dict(language='en', temperature=0, verbose=None)
+    ref = jax_model.transcribe_minimal(audio, **kw)
+    got = port_model.transcribe_minimal(audio, **kw)
+    assert got.text == ref.text and len(ref.segments) > 0
+    assert got.to_srt_vtt(word_level=True) == ref.to_srt_vtt(word_level=True)
+    with pytest.raises(TypeError, match='beam_size'):
+        port_model.transcribe_minimal(audio, beam_size=2)
+
+
+def _traces(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files
+                  if f.endswith('.pt.trace.json'))
+
+
+def test_profile_env_traces_a_request(tmp_path, monkeypatch):
+    """With STABLE_TS_TPU_PROFILE set, transcribe writes one Chrome trace
+    under <dir>/transcribe that names the request's ops; unset, none."""
+    import json
+    from stable_ts_tpu_torch import load_test_model
+    model = load_test_model(device='cpu', alignment_heads=HEADS)
+    audio = _audio(4)
+    monkeypatch.delenv('STABLE_TS_TPU_PROFILE', raising=False)
+    model.transcribe(audio, language='en', temperature=0, verbose=None)
+    assert _traces(tmp_path) == []
+    monkeypatch.setenv('STABLE_TS_TPU_PROFILE', str(tmp_path))
+    model.transcribe(audio, language='en', temperature=0, verbose=None)
+    (trace,) = _traces(tmp_path)
+    assert trace.startswith('transcribe' + os.sep)
+    with open(tmp_path / trace) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    assert any(n.startswith('aten::') for n in names)
+
+
+def test_nested_tasks_reuse_the_outer_trace(tmp_path):
+    """A task entered inside a traced one records into the outer trace:
+    one file, under the outer task's directory; profile_trace alone writes
+    one file too."""
+    from stable_ts_tpu_torch import load_test_model
+    from stable_ts_tpu_torch.profiling import maybe_trace, profile_trace
+    model = load_test_model(device='cpu', alignment_heads=HEADS)
+    env = tmp_path / 'env'
+    with maybe_trace('outer', log_dir=str(env)):
+        with maybe_trace('inner', log_dir=str(env)):
+            model.transcribe(_audio(4), language='en', temperature=0, verbose=None)
+    (trace,) = _traces(env)
+    assert trace.startswith('outer' + os.sep)
+    with profile_trace(str(tmp_path / 'direct')) as prof:
+        torch.ones(3).sum()
+    assert prof is not None and len(_traces(tmp_path / 'direct')) == 1
