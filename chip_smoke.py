@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of stable_ts_tpu_torch: builds the CUDA kernels, holds
-each against its plain PyTorch twin, then drives four paths on Whisper
+each against its plain PyTorch twin, then drives the paths on Whisper
 large-v3 (random bf16 weights from a seed, the canonical alignment heads,
 a synthetic rank table the size of the multilingual vocabulary) through
-``WhisperTorch.transcribe``, and the train step:
+``WhisperTorch.transcribe`` and ``transcribe_batched``, and the train
+step:
 
 - greedy: 75 s and 20 s with language='en', temperature=0 (the logit
   epilogue on every step);
@@ -26,9 +27,22 @@ a synthetic rank table the size of the multilingual vocabulary) through
   flash launches a window; then one window's encoder and 'new' aligner
   pass under ``profiling.profile_trace``, whose Chrome trace must name the
   flash and DTW kernels;
+- batched: ``WhisperTorch.transcribe_batched`` on 300 s of the same
+  signal: greedy over 10 windows in groups of 8 (a full group and a group
+  of 2 padded to 8), which must launch 64 flash kernels (32 encoder and 32
+  capture-pass layers) and one DTW a group; beam_size=5 over 90 s in a
+  group of 4 with no language; the temperature ladder with best_of=5 over
+  60 s in a group of 2, which must encode once; 60 s with no known heads
+  and dynamic_heads='6,2' (two DTW launches a group); 60 s with
+  aligner='new'; a warning that the batch was halved or capped fails the
+  run. Each request logs its wall, steps, ms a step, rows a step, the
+  driver's HOST_PHASES and its peak device memory, and one line compares
+  the batched greedy's seconds per audio second with the sequential
+  greedy 75 s's;
 - dq: the same weights quantized to int8 on the card (``dq=True``), with
   packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
-  and 30 s beam_size=5 with no language;
+  30 s beam_size=5 with no language, and 60 s batched greedy in a group
+  of 2 (the encoder's weight-only products at M = 3000);
 - train: a fresh bf16 model, three steps of ``make_train_step`` (AdamW as
   optax.adamw(1e-5)) at batch 2 windows and 64 tokens, the second with a
   label mask; each step must launch the flash forward and both backward
@@ -36,22 +50,28 @@ a synthetic rank table the size of the multilingual vocabulary) through
   parameter a finite, non-zero gradient; then a fourth step and one
   window's encoder forward under torch.profiler (device busy share).
 
-The launch counts are reset before each path (each train step) and read
-after it; the script fails unless each path launched the kernels it runs,
-all thirteen entries among them. A tiny f32 model also takes three train
-steps on the CPU (twins) and on the card (kernels), which must agree, and
-transcribes alike through both (with known heads, quantized, with no
-heads, with the 'new' aligner and with an extra model). The fixed-order kernels (the cross entries on a thread-block
-cluster, vocab_proj, bf16 woq_matmul and the bf16 logit epilogue on wgmma,
-the self and beam entries with their cache slice in flight, the DTW) must
-give bit-identical reruns, and the DTW's costs must equal its twin's bit
+The launch counts are reset before each path (each train step, each
+batched request) and read after it; the script fails unless each path
+launched the kernels it runs, all thirteen entries among them. Every
+kernel is also held against its twin at the batched driver's shapes
+(flash over 8 windows, the self and cross entries at 8 rows, the group
+entry over 4 windows x 5 beams, the beam entry at 20 rows, int4 at 2 rows,
+the epilogue at B = 8, vocab_proj at M = 20, woq_matmul at M = 3000, the
+DTW over (8, 252, 1500) in one launch beside 8 launches). A tiny f32
+model also takes three train steps on the CPU (twins) and on the card
+(kernels), which must agree, and transcribes alike through both (with
+known heads, quantized, with no heads, with the 'new' aligner and with
+an extra model). The fixed-order kernels (the cross entries on a
+thread-block cluster, vocab_proj, bf16 woq_matmul and the bf16 logit
+epilogue on wgmma, the self and beam entries with their cache slice in
+flight, the DTW) must give bit-identical reruns, and the DTW's costs must equal its twin's bit
 for bit. One line gives the device time of an empty launch, the floor
 under every decode kernel.
 
     python3 chip_smoke.py        # needs one CUDA GPU; exits non-zero on any failure
 
 The second-to-last line of stdout is a JSON object with each kernel's
-launches on the four paths, its error against its twin, its time, its
+launches on the paths, its error against its twin, its time, its
 twin's, the bound on its time (H100 SXM data sheet) and, where one PyTorch
 call computes the same function, that call's time (every kernel and
 library call by its device time alone, from torch.profiler; the CUDA-event
@@ -59,8 +79,10 @@ times, which also read the wrappers' host time, are logged beside them);
 the logit epilogue's entry is B = 1's, with B = 5's under "B=5" and
 torch.mm of the same product beside each as "yardstick_mm_ms" (not the
 same function), and the DTW's has its time a row of the chain
-("ms_per_row");
-the last line is
+("ms_per_row"); the kernels' numbers at the batched shapes are under "batched" (the
+epilogue's B = 8 under "B=8", vocab_proj's M = 20 under "M=20",
+woq_matmul's M = 3000 under "M=3000"). The line before it gives the run's
+elapsed seconds; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the package
 beside it, the script fails and prints no result.
 """
@@ -435,11 +457,175 @@ def kernel_checks(torch, results: dict) -> None:
     woq_checks(torch, results, randn)
     vocab_checks(torch, results, randn)
     flash_bwd_checks(torch, results, randn)
+    batched_kernel_checks(torch, results, randn, gen)
+
+
+def batched_kernel_checks(torch, results: dict, randn, gen) -> None:
+    """The kernels at the shapes the batched driver sends them (large-v3,
+    groups of 8 windows): flash over 8 windows (encoder (8,1500,1280) and
+    the capture pass (8,256,1280) x 1500); the self and cross entries at 8
+    rows; the cross group entry over 4 windows x 5 beams and the beam self
+    entry at 20 rows; the int4 cross entry at 2 rows; the DTW over (8,252,
+    1500) in one launch, beside 8 launches of one window each (the
+    yardstick). Each within its twin's tolerance as at the sequential
+    shapes, reruns bit-identical where the kernel sums in a fixed order,
+    with its device time, its twin's, its bound and, for flash, SDPA's;
+    the numbers go under "batched" in each kernel's entry."""
+    import torch.nn.functional as F
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.models.whisper.timing import legacy_weights_batched
+    from stable_ts_tpu_torch.ops import cross_attn, dtw, flash_attn, self_attn
+    d, h, s, ctx, pos = 1280, 20, 1500, 256, 200
+    scale = (d // h) ** -0.5
+
+    def put(name, key, numbers):
+        results[name].setdefault('batched', {})[key] = numbers
+
+    for b, t, what in ((8, 1500, 'encoder bf16 (8,1500,1280)'),
+                       (8, 256, 'capture pass bf16 (8,256,1280)x1500')):
+        q = randn(b, t, d, dtype=torch.bfloat16)
+        k, v = randn(b, s, d, dtype=torch.bfloat16), randn(b, s, d, dtype=torch.bfloat16)
+        got = flash_attn.flash_attention(q, k, v, h, scale)
+        ref = flash_attn.flash_attention_ref(q, k, v, h, scale)
+        torch.cuda.synchronize()
+        err = check('flash_attn', got, ref, 2e-2, what)
+        qh, kh, vh = (a.view(b, -1, h, d // h).transpose(1, 2) for a in (q, k, v))
+        ms, plain, lib = (device_ms(fn, iters=10) for fn in (
+            lambda: flash_attn.flash_attention(q, k, v, h, scale),
+            lambda: flash_attn.flash_attention_ref(q, k, v, h, scale),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)))
+        numbers = entry(err, ms, plain, nbytes(q, k, v, q), 4 * b * t * s * d, 'bf16', lib)
+        log(f'[kernel] flash_attn {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms, '
+            f'scaled_dot_product_attention {lib:.4f} ms; bound {numbers["bound_ms"]:.4f} ms '
+            f'({numbers["bound_by"]})')
+        put('flash_attn', what, numbers)
+        del q, k, v, got, ref
+
+    # the self entry at 8 rows: one layer of an (8, 256, 1280) int8 cache
+    rows = 8
+    kc, ks = quantize_rows(randn(rows, ctx, d))
+    vc, vs = quantize_rows(randn(rows, ctx, d))
+    q = randn(rows, d) * scale
+    args = (q, kc, vc, ks, vs, pos, h)
+    what = 'int8 cache (8,256,1280) pos 200, 8 rows'
+    got = self_attn.self_attn_decode(*args)
+    ref = self_attn.self_attn_decode_ref(*args)
+    torch.cuda.synchronize()
+    err = check('self_attn_decode', got, ref, 1e-4, what)
+    rerun_identical('self_attn_decode', lambda: self_attn.self_attn_decode(*args), got, what)
+    ms = device_ms(lambda: self_attn.self_attn_decode(*args), iters=200)
+    plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args), iters=200)
+    n = pos + 1
+    numbers = entry(err, ms, plain, 2 * rows * n * (d + 4) + nbytes(q, got),
+                    4 * rows * n * d, 'f32')
+    log(f'[kernel] self_attn_decode {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms, '
+        f'bound {numbers["bound_ms"]:.5f} ms')
+    put('self_attn_decode', '8 rows', numbers)
+
+    # the cross entries on 8 windows' int8 K/V (8 layers of (8, 2, 1500, 1280))
+    layers = 8
+    for windows, g, name, what in (
+            (8, 1, 'cross_attn_decode', 'int8 kv (8,8,2,1500,1280), 8 rows'),
+            (4, 5, 'cross_attn_decode_group', 'g=5 int8 kv (8,4,2,1500,1280), 20 rows')):
+        kv, sc = quantize_rows(randn(layers, windows, 2, s, d))
+        q = randn(windows * g, d) * scale
+        args = (q, kv, sc, 7, s, h)
+        ref_args = (q, kv[7, :, 0], kv[7, :, 1], sc[7, :, 0], sc[7, :, 1], s, h, g)
+        got = cross_attn.cross_attn_decode(*args, q_per_kv=g)
+        ref = cross_attn.cross_attn_decode_ref(*ref_args)
+        torch.cuda.synchronize()
+        err = check(name, got, ref, 1e-3, what)
+        rerun_identical(name, lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g), got, what)
+        ms = device_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g), iters=200)
+        plain = device_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=50)
+        numbers = entry(err, ms, plain, nbytes(kv[7], sc[7], q, got), 4 * windows * g * s * d,
+                        'bf16')
+        log(f'[kernel] {name} {what}: device kernel {ms:.4f} ms, twin {plain:.4f} ms, bound '
+            f'{numbers["bound_ms"]:.5f} ms')
+        put(name, f'{windows * g} rows', numbers)
+        del kv, sc
+
+    # the beam self entry at 20 rows (4 windows x 5 beams), a random valid
+    # ancestry table (each row's own local index at pos)
+    rows, g = 20, 5
+    kc, ks = quantize_rows(randn(rows, ctx, d))
+    vc, vs = quantize_rows(randn(rows, ctx, d))
+    anc = torch.randint(0, g, (rows, ctx), generator=gen, device='cuda', dtype=torch.int32)
+    anc[:, pos] = torch.arange(rows, device='cuda', dtype=torch.int32) % g
+    q = randn(rows, d) * scale
+    args = (q, kc, vc, ks, vs, pos, h)
+    what = 'int8 cache (20,256,1280) pos 200, 4 windows x 5 beams, random anc'
+    got = self_attn.self_attn_decode(*args, anc=anc, q_per_kv=g)
+    ref = self_attn.self_attn_decode_ref(*args, anc=anc, q_per_kv=g)
+    torch.cuda.synchronize()
+    err = check('self_attn_decode_beam', got, ref, 1e-4, what)
+    rerun_identical('self_attn_decode_beam',
+                    lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=g), got, what)
+    ms = device_ms(lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=g), iters=200)
+    plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args, anc=anc, q_per_kv=g),
+                      iters=50)
+    n = pos + 1
+    reached = sum(len(set((anc[w * g:(w + 1) * g, j] + w * g).tolist()))
+                  for w in range(rows // g) for j in range(n))
+    numbers = entry(err, ms, plain, 2 * reached * (d + 4) + nbytes(anc[:, :n], q, got),
+                    4 * rows * n * d, 'f32')
+    log(f'[kernel] self_attn_decode_beam {what}: device kernel {ms:.4f} ms, twin '
+        f'{plain:.4f} ms, bound {numbers["bound_ms"]:.5f} ms')
+    put('self_attn_decode_beam', '20 rows', numbers)
+
+    # the int4 cross entry at 2 rows (the batched dq request's group of 2)
+    vals, sc = quantize_rows(randn(layers, 2, 2, s, d), bits=4)
+    kv = cross_attn.pack_int4(vals)
+    q = randn(2, d) * scale
+    args = (q, kv, sc, 7, s, h)
+    ref_args = (q, vals[7, :, 0], vals[7, :, 1], sc[7, :, 0], sc[7, :, 1], s, h, 1)
+    what = 'int4 kv (8,2,2,1500,1280) packed, 2 rows'
+    got = cross_attn.cross_attn_decode(*args, bits=4)
+    ref = cross_attn.cross_attn_decode_ref(*ref_args)
+    torch.cuda.synchronize()
+    err = check('cross_attn_decode_int4', got, ref, 1e-3, what)
+    rerun_identical('cross_attn_decode_int4',
+                    lambda: cross_attn.cross_attn_decode(*args, bits=4), got, what)
+    ms = device_ms(lambda: cross_attn.cross_attn_decode(*args, bits=4), iters=200)
+    plain = device_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=50)
+    numbers = entry(err, ms, plain, nbytes(kv[7], sc[7], q, got), 4 * 2 * s * d, 'bf16')
+    log(f'[kernel] cross_attn_decode_int4 {what}: device kernel {ms:.4f} ms, twin '
+        f'{plain:.4f} ms, bound {numbers["bound_ms"]:.5f} ms')
+    put('cross_attn_decode_int4', '2 rows', numbers)
+
+    # the DTW over a group: 8 windows of 252 token rows x 1500 frames in one
+    # launch (the batched legacy weights of a random capture), bit for bit
+    # its twin's, beside 8 launches of one window each
+    qk = (randn(3, 8, 256, s) * 4).to(torch.bfloat16)
+    full = torch.full((8,), s, device='cuda')
+    mats = legacy_weights_batched(qk, full, torch.full((8,), 252, device='cuda'), 3, 1.0, 7)
+    x = -mats.contiguous()
+    got = dtw.dtw_cost(x)
+    ref = dtw.dtw_cost_ref(x)
+    torch.cuda.synchronize()
+    same = torch.equal(got, ref)
+    err = (got - ref).abs().max().item()
+    what = '(8,252,1500) f32, one launch'
+    log(f'[kernel] dtw_cost cost {what}: equal to the twin bit for bit: {same} '
+        f'(max_abs_err={err:.3e})')
+    if not same:
+        raise AssertionError('dtw_cost: the batched costs differ from the twin\'s')
+    rerun_identical('dtw_cost', lambda: dtw.dtw_cost(x), got, what)
+    singles = [x[i:i + 1].contiguous() for i in range(8)]
+    ms = device_ms(lambda: dtw.dtw_cost(x))
+    eight = device_ms(lambda: [dtw.dtw_cost(one) for one in singles])
+    plain = device_ms(lambda: dtw.dtw_cost_ref(x), iters=3, warmup=1)
+    numbers = entry(err, ms, plain, nbytes(x, got), 3 * 8 * 252 * s, 'f32')
+    numbers['yardstick_8_launches_ms'] = eight
+    log(f'[kernel] dtw_cost {what}: device kernel {ms:.4f} ms, 8 launches of one window '
+        f'{eight:.4f} ms (yardstick), twin {plain:.4f} ms, bound {numbers["bound_ms"]:.5f} ms')
+    put('dtw_cost', '(8,252,1500)', numbers)
 
 
 def epilogue_checks(torch, results: dict, randn, gen) -> None:
     """The logit epilogue at large-v3 shapes (emb (51866, 1280) bf16) for
-    B = 1 and 5, with a suppress list, a silence mask and grammar flags that
+    B = 1, 5 and 8 (the batched driver's greedy step; the 8-row
+    template), with a suppress list, a silence mask and grammar flags that
     differ across rows. Aggregates within 1e-3 relative; argmax ids equal
     wherever the top two filtered logits of a part differ by more than
     that."""
@@ -448,7 +634,7 @@ def epilogue_checks(torch, results: dict, randn, gen) -> None:
     emb = (randn(v, d) * 0.02).to(torch.bfloat16)
     suppress = torch.where(torch.rand(v, generator=gen, device='cuda') < 0.02,
                            -1e9, 0.0)
-    for b in (1, 5):
+    for b in (1, 5, 8):
         x = randn(b, d).to(torch.bfloat16)
         sil = torch.zeros((b, v), device='cuda')
         sil[:, ts_begin:] = torch.where(
@@ -532,7 +718,8 @@ def woq_checks(torch, results: dict, randn) -> None:
     """The weight-only int8 matmul at the dq paths' shapes: M = 1 and 5
     (decode), 230 (the timing pass), 1500 (the encoder) for each (K, N) of
     the decoder's fused qkv, out, fc1 and fc2 linears, bf16 x (the
-    tensor-core kernel); one f32 x (CUDA cores). The kernel's f32 output
+    tensor-core kernel), and M = 3000 at (1280, 5120) (the batched dq
+    encoder's two windows); one f32 x (CUDA cores). The kernel's f32 output
     (before the wrapper's cast) against the twin's within 1e-5 of its
     largest value: the same exact products summed in another order; bf16
     reruns bit-identical. Beside each bf16 shape, as yardsticks (not the
@@ -543,6 +730,8 @@ def woq_checks(torch, results: dict, randn) -> None:
     from stable_ts_tpu_torch.ops import woq_matmul as woq
     shapes = [(m, k, n, torch.bfloat16, 1e-5) for m in (1, 5, 230, 1500)
               for k, n in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))]
+    # the batched dq encoder: two windows' 1500 frames a product
+    shapes.append((3000, 1280, 5120, torch.bfloat16, 1e-5))
     shapes.append((230, 1280, 5120, torch.float32, 1e-5))
     weights = {}
     for m, k, n, dtype, tol in shapes:
@@ -575,18 +764,21 @@ def woq_checks(torch, results: dict, randn) -> None:
             f'{ev:.4f} ms')
         if (m, k, n) == (1, 1280, 5120):
             results['woq_matmul'] = numbers
+        elif (m, k, n) == (3000, 1280, 5120):
+            results['woq_matmul']['M=3000'] = numbers
 
 
 def vocab_checks(torch, results: dict, randn) -> None:
     """The vocab projection of the beam and sampled steps: x (M, 1280) bf16
-    against emb (51866, 1280) bf16, M = 1, 5, 16 (beam and best_of steps)
-    and 64, 256 (the batched driver's rows), on the tensor-core kernel; one
+    against emb (51866, 1280) bf16, M = 1, 5, 16 (beam and best_of steps),
+    20 (the batched driver's beam step: 4 windows of 5 beams) and 64, 256,
+    on the tensor-core kernel; one
     f32 shape on the CUDA-core kernel. f32 logits within 1e-4 relative to
     the largest (f32 sums of the same exact products); bf16 reruns
     bit-identical. Device times and events beside the library call."""
     from stable_ts_tpu_torch.ops import vocab_proj as vp
     emb = (randn(51866, 1280) * 0.02).to(torch.bfloat16)
-    for m in (1, 5, 16, 64, 256):
+    for m in (1, 5, 16, 20, 64, 256):
         x = randn(m, 1280, dtype=torch.bfloat16)
         got = vp.vocab_proj(x, emb)
         ref = vp.vocab_proj_ref(x, emb)
@@ -606,6 +798,8 @@ def vocab_checks(torch, results: dict, randn) -> None:
             f'({numbers["bound_by"]}); events {ev:.4f} ms, torch.mm {lib_ev:.4f} ms')
         if m == 5:
             results['vocab_proj'] = numbers
+        elif m == 20:
+            results['vocab_proj']['M=20'] = numbers
     x, emb32 = randn(5, 1280), randn(4100, 1280) * 0.02
     check('vocab_proj', vp.vocab_proj(x, emb32), vp.vocab_proj_ref(x, emb32), 1e-4,
           'M=5 emb (4100,1280) f32 (CUDA cores)')
@@ -745,6 +939,8 @@ def train_path(torch, dims, audio) -> dict:
     from stable_ts_tpu_torch.models.whisper.model import encoder_apply, init_params
     from stable_ts_tpu_torch.ops.mel import log_mel_spectrogram
     torch.cuda.reset_peak_memory_stats()
+    log(f'[train] device memory allocated before the path: '
+        f'{torch.cuda.memory_allocated() / 1e9:.3f} GB')
     t0 = time.perf_counter()
     model = init_params(dims, seed=0, dtype=torch.bfloat16)   # on the card by default
     init_opt_state, train_step = train.make_train_step(dims)
@@ -904,7 +1100,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from stable_ts_tpu_torch import _build
-    t0 = time.perf_counter()
+    started = t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
     log(f'[build] {lib_path.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s')
@@ -959,7 +1155,8 @@ def main() -> int:
          ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
           'cross_attn_decode_group', 'vocab_proj', 'dtw_cost')),
     ]
-    counts = drive_paths(torch, model, paths, ladder)
+    sequential = []
+    counts = drive_paths(torch, model, paths, ladder, sequential)
 
     # -- no known heads: the same weights, 6 heads selected per token ------------------
     no_heads = WhisperTorch(dims, params, device='cuda', name=MODEL + '-no-heads',
@@ -977,6 +1174,40 @@ def main() -> int:
     # -- a checkpoint written and loaded; the 'new' aligner; an extra model ----------------
     for name, n in checkpoint_paths(torch, model, ranks, audio, ladder).items():
         counts[name] = counts.get(name, 0) + n
+
+    # -- the batched driver: window groups through transcribe_batched -----------------
+    no_heads = WhisperTorch(dims, params, device='cuda', name=MODEL + '-no-heads',
+                            ranks=ranks, alignment_heads=None)
+    long_audio = synth_speech_like(300.0)
+    batched = [
+        ('batched greedy', model, long_audio,
+         dict(batch_size=8, language='en', temperature=0),
+         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue', 'dtw_cost')),
+        ('batched beam', model, long_audio[:90 * SR],
+         dict(batch_size=4, beam_size=5, temperature=0),
+         ('flash_attn', 'self_attn_decode_beam', 'cross_attn_decode_group', 'vocab_proj',
+          'dtw_cost')),
+        ('batched ladder', model, long_audio[90 * SR:150 * SR],
+         dict(batch_size=2, language='en', temperature=ladder, best_of=5),
+         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue', 'dtw_cost')),
+        ('batched no heads', no_heads, long_audio[150 * SR:210 * SR],
+         dict(batch_size=2, language='en', temperature=0, dynamic_heads='6,2'),
+         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue', 'dtw_cost')),
+        ('batched new aligner', model, long_audio[150 * SR:210 * SR],
+         dict(batch_size=2, language='en', temperature=0, aligner='new'),
+         ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue', 'dtw_cost')),
+    ]
+    batched_reqs = {}
+    for name, n in batched_paths(torch, batched, batched_reqs).items():
+        counts[name] = counts.get(name, 0) + n
+    decode_busy_share(torch, model, long_audio)
+    del no_heads, batched   # the requests hold the models (dq quantizes in place)
+    greedy_75 = sequential[0]
+    seq_rate = greedy_75['wall'] / greedy_75['duration']
+    batched_rate = batched_reqs['batched greedy']['s_per_audio_s']
+    log(f'[batched] seconds per audio second, same run: batched greedy (300 s, groups of 8) '
+        f'{batched_rate:.4f} against the sequential greedy {greedy_75["label"]} '
+        f'{seq_rate:.4f} ({seq_rate / batched_rate:.2f}x)')
 
     # -- the dq path: the same weights quantized on the card, int4 cross K/V -------------
     from stable_ts_tpu_torch.models.whisper.quantization import quantized_bytes
@@ -1003,6 +1234,12 @@ def main() -> int:
           'vocab_proj', 'dtw_cost')),
     ]
     for name, n in drive_paths(torch, dq_model, dq_paths, ladder).items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in batched_paths(torch, [
+            ('batched dq', dq_model, long_audio[210 * SR:270 * SR],
+             dict(batch_size=2, language='en', temperature=0, kv_quant=4),
+             ('flash_attn', 'woq_matmul', 'cross_attn_decode_int4', 'logit_epilogue',
+              'self_attn_decode', 'dtw_cost'))], batched_reqs).items():
         counts[name] = counts.get(name, 0) + n
 
     # -- the train path: a fresh float model (the dq path quantized the old one) ---------
@@ -1057,6 +1294,7 @@ def main() -> int:
                     replaces=meta[name][1], launches=counts.get(name, 0),
                     **results[name])
                for name in meta]
+    log(f'[run] chip_smoke elapsed {time.perf_counter() - started:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1283,7 +1521,8 @@ def drive_paths(torch, model, paths, ladder, requests_out=None) -> dict:
                 if requests_out is not None:
                     after = _build.launch_counts()
                     requests_out.append(dict(
-                        label=label, windows=calls.get('encode', 0),
+                        label=label, wall=wall, duration=duration,
+                        windows=calls.get('encode', 0),
                         word_timing_s=phases.get('word_timing', 0.0),
                         word_timing_peak_bytes=peak[0],
                         launches={k: after[k] - before.get(k, 0) for k in after}))
@@ -1298,6 +1537,180 @@ def drive_paths(torch, model, paths, ladder, requests_out=None) -> dict:
     finally:
         decoding.decoder_step, driver.add_word_timestamps = step_fn, word_fn
     return counts
+
+
+def batched_paths(torch, requests, summaries: dict) -> dict:
+    """Drive each request (name, model, clip, options, kernels it must
+    launch) through ``model.transcribe_batched`` once, with the launch
+    counts reset before it and read after it; a warning that the batch was
+    halved or capped is an error (a smaller batch is not the path the
+    request names). Logs wall seconds, seconds per audio second, window
+    groups, decoder steps, ms a step (the decode calls' time on the main
+    stream over their steps), rows and real windows a step, the
+    decode calls (temperature, best_of, beam, rows), HOST_PHASES and the
+    peak device memory over what was resident before the request. Checks
+    per request: the kernels launched; 'batched greedy' two groups of 64
+    flash launches (32 encoder layers + 32 capture-pass layers) and one DTW
+    launch each; 'batched ladder' one encode for its one group whatever the
+    rungs, and the group entry and vocab_proj on a rung above 0 if any
+    window fell back; 'batched no heads' two DTW launches a group ('6,2':
+    one refinement pass). Returns the launches summed; each request's
+    numbers go to ``summaries``."""
+    import warnings
+    import numpy as np
+    import stable_ts_tpu_torch.batched as batched_mod
+    import stable_ts_tpu_torch.models.whisper.decoding as decoding
+    from stable_ts_tpu_torch import _build
+    counts = {}
+    step_fn = decoding.decoder_step
+    step_rows = []
+
+    def counted_step(decoder, tokens, *a, **kw):
+        step_rows.append(tokens.shape[0])
+        return step_fn(decoder, tokens, *a, **kw)
+
+    decoding.decoder_step = counted_step
+    try:
+        for name, model, clip, options, needed in requests:
+            duration = clip.shape[-1] / SR
+            calls, encodes, decode_s, first_rung = [], [0], [0.0], [0]
+            stream = torch.cuda.current_stream()
+            real = {k: getattr(model, k) for k in ('embed_audio', 'decode_launch', 'decode')}
+
+            def embed(mel, _f=real['embed_audio']):
+                encodes[0] += 1
+                return _f(mel)
+
+            def timed_decode(kind):
+                def inner(feats, options, **kw):
+                    # the main stream only: the side stream's timing pass
+                    # runs on meanwhile
+                    stream.synchronize()
+                    t = time.perf_counter()
+                    out = real[kind](feats, options, **kw)
+                    stream.synchronize()
+                    decode_s[0] += time.perf_counter() - t
+                    calls.append((options.temperature, options.best_of, options.beam_size,
+                                  int(feats.shape[0])))
+                    if kind == 'decode_launch':
+                        first_rung[0] += 1
+                    return out
+                return inner
+
+            model.embed_audio = embed
+            model.decode_launch = timed_decode('decode_launch')
+            model.decode = timed_decode('decode')
+            step_rows.clear()
+            batched_mod.HOST_PHASES.clear()
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            try:
+                with warnings.catch_warnings():
+                    warnings.filterwarnings('error', message='.*retrying transcription.*')
+                    warnings.filterwarnings('error', message='.*device memory capacity.*')
+                    result = model.transcribe_batched(clip, verbose=None, **options)
+                    srt = result.to_srt_vtt(word_level=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for k in real:
+                    delattr(model, k)
+            peak = torch.cuda.max_memory_allocated() - resident
+            launches = _build.launch_counts()
+            n_words = check_result(result, srt, duration)
+            groups = encodes[0]
+            windows = int(np.ceil(duration / 30))
+            steps = len(step_rows)
+            hp = ', '.join(f'{k} {v:.3f} s' for k, v in batched_mod.HOST_PHASES.items())
+            summaries[name] = dict(wall=wall, duration=duration,
+                                   s_per_audio_s=wall / duration, groups=groups,
+                                   steps=steps, launches=launches, peak=peak)
+            log(f'[{name}] {duration:.0f} s, {options}: wall {wall:.3f} s ({wall / duration:.4f} '
+                f's per audio second), language {result.language}, {len(result.segments)} '
+                f'segments, {n_words} words, srt {len(srt)} bytes; {groups} groups of '
+                f'{options["batch_size"]} windows, {steps} decoder steps, decode '
+                f'{decode_s[0]:.3f} s ({decode_s[0] / max(steps + len(calls), 1) * 1e3:.2f} ms '
+                f'per step or prefill), {np.mean(step_rows) if step_rows else 0:.1f} rows a '
+                f'step, {windows / max(first_rung[0], 1):.2f} real windows a first-rung step; '
+                f'decode calls (temperature, best_of, beam, rows) {calls}; HOST_PHASES {hp}; '
+                f'peak +{peak / 1e9:.3f} GB over the resident {resident / 1e9:.3f} GB')
+            log(f'[{name}] kernel launches: {launches}')
+            missing = [k for k in needed if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f'{name}: kernels not launched: {missing}')
+            if name == 'batched greedy':
+                want = dict(flash_attn=64 * groups, dtw_cost=groups)
+                got = {k: launches.get(k, 0) for k in want}
+                if groups != 2 or got != want:
+                    raise AssertionError(f'{name}: {groups} groups, launches {got}, want '
+                                         f'2 groups and {want}')
+                log(f'[{name}] one encode and one timing pass a group: {groups} groups, '
+                    f'{got["flash_attn"]} flash launches (32 encoder + 32 capture pass a '
+                    f'group), {got["dtw_cost"]} DTW launches')
+            elif name == 'batched ladder':
+                rungs = sorted({c[0] for c in calls})
+                retries = [c for c in calls if c[0] > 0]
+                log(f'[{name}] rungs {rungs}; retry rows {[c[3] for c in retries]} '
+                    f'(x best_of {options["best_of"]}); encoder runs {groups}, flash '
+                    f'launches {launches.get("flash_attn", 0)}')
+                if groups != 1 or launches.get('flash_attn', 0) != 64:
+                    raise AssertionError(f'{name}: the encoder ran {groups} times '
+                                         f'({launches.get("flash_attn", 0)} flash launches) '
+                                         'for one group')
+                if retries:
+                    for k in ('cross_attn_decode_group', 'vocab_proj'):
+                        if launches.get(k, 0) <= 0:
+                            raise AssertionError(f'{name}: a rung above 0 launched no {k}')
+                else:
+                    log(f'[{name}] no window fell back: every window stood at temperature 0')
+            elif name == 'batched no heads':
+                if launches.get('dtw_cost', 0) != 2 * groups:
+                    raise AssertionError(f'{name}: {launches.get("dtw_cost", 0)} DTW launches '
+                                         f'for {groups} groups, want two a group')
+            elif name == 'batched beam':
+                log(f'[{name}] detected language: {result.language}')
+            for k, n in launches.items():
+                counts[k] = counts.get(k, 0) + n
+    finally:
+        decoding.decoder_step = step_fn
+    return counts
+
+
+def decode_busy_share(torch, model, audio) -> None:
+    """Where a decode step's time goes at 1 row and at 8: the greedy decode
+    of one window and of 8 windows (features of the first 240 s of
+    ``audio``), 32 steps at most, each once under torch.profiler after a
+    warm-up call: wall a step, the device's busy share of the wall (the
+    kernels' durations summed) and the top kernels."""
+    import numpy as np
+    import stable_ts_tpu_torch.models.whisper.decoding as decoding
+    from stable_ts_tpu_torch.constants import N_FRAMES, N_SAMPLES
+    from stable_ts_tpu_torch.ops.mel import log_mel_spectrogram
+    wins = np.stack([audio[i * N_SAMPLES:(i + 1) * N_SAMPLES] for i in range(8)])
+    mels = log_mel_spectrogram(wins, model.dims.n_mels, device='cuda')[..., :N_FRAMES]
+    feats = model.embed_audio(mels)
+    options = decoding.DecodingOptions(language='en', temperature=0, sample_len=32)
+    step_fn, steps = decoding.decoder_step, [0]
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return step_fn(*a, **kw)
+
+    decoding.decoder_step = counted
+    try:
+        for rows in (1, 8):
+            model.decode(feats[:rows], options)
+            steps[0] = 0
+            _, wall, busy, _, top = profiled(lambda: model.decode(feats[:rows], options))
+            log(f'[decode profile] greedy, {rows} row(s), {steps[0]} steps under '
+                f'torch.profiler: wall {wall * 1e3 / max(steps[0], 1):.2f} ms a step, device '
+                f'busy {busy * 1e3 / max(steps[0], 1):.3f} ms a step ({busy / wall:.1%} of the '
+                f'wall); top kernels (name, calls, ms) {top}')
+    finally:
+        decoding.decoder_step = step_fn
 
 
 def check_rungs(options: dict, rungs: list, result, ladder: tuple) -> None:

@@ -6,8 +6,12 @@ directories) onto one NVIDIA Hopper GPU, or the CPU when asked. The
 sampled (temperature ladder with best_of) or beam-search decoding under
 the timestamp grammar -> cross-attention DTW word timing, with the legacy
 or the 'new' aligner and optional extra models -> SRT), its
-``transcribe_minimal`` variant and the train step (teacher-forced
-cross-entropy, AdamW) run in PyTorch, with hand-written CUDA kernels where
+``transcribe_minimal`` variant, the batched driver
+``model.transcribe_batched`` (30-s windows in groups, each group encoded
+once and decoded as one batch, its word timing scored on the device and
+queued on a second CUDA stream; ``batched.py``) and the train step
+(teacher-forced cross-entropy, AdamW) run in PyTorch, with hand-written
+CUDA kernels where
 the JAX package runs Pallas kernels on the TPU (flash attention and its
 backward, self- and cross-attention decode with their beam and
 window-group entries, the greedy logit epilogue, the DTW cost, the int8

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from .models.whisper.decoding import (DecodingOptions, decode as _decode,
+                                      decode_collect as _decode_collect,
+                                      decode_launch as _decode_launch,
                                       detect_language as _detect_language)
 from .models.whisper.dims import (OPENAI_MODEL_DIMS, ModelDimensions,
                                    tiny_test_dims)
@@ -123,6 +125,28 @@ class WhisperTorch:
                        ts_silence_mask=ts_silence_mask,
                        with_features=with_features, generator=generator)
 
+    def decode_launch(self, mel_or_features,
+                      options: Optional[DecodingOptions] = None,
+                      ts_silence_mask=None, language: Optional[str] = None,
+                      generator: Optional[torch.Generator] = None, **kwargs):
+        """Run a batched decode and keep its outputs on the device (a
+        :class:`~.models.whisper.decoding.PendingDecode`); pair with
+        :meth:`decode_collect`. Pass encoder features to reuse them across
+        the fallback rungs. With no language it decodes as 'en', as JAX's
+        ``decode_launch`` does (loaders.py:187-190): callers detect first."""
+        if options is None:
+            options = DecodingOptions(**kwargs)
+        tokenizer = self.get_tokenizer(
+            language=options.language or language or 'en', task=options.task)
+        return _decode_launch(self.params, self.dims, tokenizer,
+                              self._on_device(mel_or_features), options,
+                              ts_silence_mask=ts_silence_mask,
+                              generator=generator)
+
+    def decode_collect(self, pending, with_features: bool = True):
+        """Download a launched decode's outputs; its DecodingResults."""
+        return _decode_collect(pending, with_features=with_features)
+
     def detect_language(self, mel):
         """(language codes, probability maps) per window of ``mel`` (a mel
         or encoder features)."""
@@ -137,6 +161,10 @@ class WhisperTorch:
     def transcribe_minimal(self, audio, **kwargs):
         from .transcribe import transcribe_minimal
         return transcribe_minimal(self, audio, **kwargs)
+
+    def transcribe_batched(self, audio, **kwargs):
+        from .batched import transcribe_batched
+        return transcribe_batched(self, audio, **kwargs)
 
 
 def load_test_model(seed: int = 0, device='cuda', **kwargs) -> WhisperTorch:

@@ -20,6 +20,13 @@ window's cross K/V, stopping when nothing is left to sample:
   ``_finalize_beam``): the cache never moves; an ancestry table does.
 - :func:`detect_language`.
 
+``decode`` is :func:`decode_collect` of :func:`decode_launch`, the seam of
+JAX's ``decode`` (decoding.py:685-928): ``decode_launch`` runs the prefill
+and the loop and returns a :class:`PendingDecode` whose outputs (tokens,
+sums, beam pools, no-speech probabilities) are still on the device;
+``decode_collect`` downloads them and builds the results. The batched
+driver (``batched.py``) decodes its window groups through the seam.
+
 A window's best_of candidates or beams share its cross K/V
 (``q_per_kv``). The host loop passes the exact position to every step, so
 the JAX package's cache-length buckets (``_ctx_buckets``) have no
@@ -435,6 +442,26 @@ def _finalize_beam(tokens, cum, fin_tokens, fin_scores, beam: int,
     return chosen
 
 
+@dataclass
+class PendingDecode:
+    """A batched decode whose loop has run but whose outputs are still on
+    the model's device (decoding.py:685-706).
+
+    :func:`decode_launch` returns it and :func:`decode_collect` copies the
+    outputs down and builds the DecodingResults. JAX's ``decode_launch``
+    returns before its ``lax.while_loop`` ends; the port's loops read the
+    device every step to stop, so here the seam only defers the download
+    and the host's result building, and lets a caller keep the group's
+    features (``xa``) for the fallback rungs."""
+    kind: str                      # 'sample' | 'beam'
+    xa: torch.Tensor               # (B, 1500, d) encoder features
+    n_group: int
+    options: DecodingOptions
+    tokenizer: object
+    no_speech_probs: torch.Tensor  # (rows,) on the device
+    outputs: tuple                 # the loop's outputs, on the device
+
+
 @torch.inference_mode()
 def decode(model, dims, tokenizer, mel_or_features: torch.Tensor,
            options: DecodingOptions = DecodingOptions(),
@@ -447,6 +474,20 @@ def decode(model, dims, tokenizer, mel_or_features: torch.Tensor,
     timestamp tokens to suppress (the silence-mask rule). ``generator``
     draws the samples at temperature > 0; None means a fresh generator on
     the model's device seeded with 0."""
+    return decode_collect(decode_launch(
+        model, dims, tokenizer, mel_or_features, options,
+        ts_silence_mask=ts_silence_mask, generator=generator),
+        with_features=with_features)
+
+
+@torch.inference_mode()
+def decode_launch(model, dims, tokenizer, mel_or_features: torch.Tensor,
+                  options: DecodingOptions = DecodingOptions(),
+                  ts_silence_mask: Optional[np.ndarray] = None,
+                  generator: Optional[torch.Generator] = None) -> PendingDecode:
+    """Run a batched decode and keep its outputs on the device; see
+    :class:`PendingDecode`. Pass encoder features to reuse them across the
+    temperature fallback's rungs (decoding.py:724-868)."""
     xa = audio_features(model, dims, mel_or_features)
     device = xa.device
     batch = xa.shape[0]
@@ -503,48 +544,68 @@ def decode(model, dims, tokenizer, mel_or_features: torch.Tensor,
     step = partial(decoder_step, dec, cross_kv=precompute_cross_kv_t(
         dec, xa, quantize=kv_quant), cache=cache, fused_qkv=fuse_self_qkv(dec),
         q_per_kv=n_group)
+    # stays on the device: a download here would wait for the prefill
     no_speech = torch.softmax(prefill_logits[:, sot_index], dim=-1)[
-        :, tokenizer.no_speech].float().cpu().numpy()
+        :, tokenizer.no_speech].float()
     logits = prefill_logits[:, -1]
     loop = dict(sample_begin=sample_begin, sample_len=sample_len, eot=eot,
                 ts_begin=ts_begin)
+    pending = partial(PendingDecode, xa=xa, n_group=n_group,
+                      options=options, tokenizer=tokenizer,
+                      no_speech_probs=no_speech)
 
     if use_beam:
         max_candidates = int(math.ceil(n_group * (options.patience or 1.0)))
-        out = _beam_loop(step, filt, logits, beam=n_group,
-                         max_candidates=max_candidates, cache_len=cache_len,
-                         **loop)
-        tokens_np, cum_np, fin_tok_np, fin_sc_np = (t.cpu().numpy() for t in out)
+        return pending(kind='beam', outputs=_beam_loop(
+            step, filt, logits, beam=n_group, max_candidates=max_candidates,
+            cache_len=cache_len, **loop))
+    if options.temperature == 0:
+        with_grammar = not options.without_timestamps
+        emb = dec.token_emb
+
+        def epilogue(x, flags):
+            return fused_logit_aggregates(x, emb, suppress_t, ts_mask, flags,
+                                          ts_begin, eot, with_grammar)
+
+        outputs = _greedy_loop(step, filt, logits, epilogue,
+                               with_grammar=with_grammar, **loop)
+    else:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        outputs = _sample_loop(step, filt, logits,
+                               temperature=options.temperature,
+                               generator=generator, **loop)
+    return pending(kind='sample', outputs=outputs)
+
+
+def decode_collect(pending: PendingDecode,
+                   with_features: bool = True) -> List[DecodingResult]:
+    """Copy a :class:`PendingDecode`'s outputs to the host and build its
+    DecodingResults (decoding.py:871-928). ``with_features=False`` leaves
+    ``audio_features`` None: the batched driver keeps the group's features
+    itself."""
+    options, tokenizer = pending.options, pending.tokenizer
+    n_group, eot = pending.n_group, tokenizer.eot
+    no_speech = pending.no_speech_probs.cpu().numpy()
+    if pending.kind == 'beam':
+        tokens_np, cum_np, fin_tok_np, fin_sc_np = (
+            t.cpu().numpy() for t in pending.outputs)
         chosen = [(b * n_group, seq, avg) for b, (seq, avg) in enumerate(
             _finalize_beam(tokens_np, cum_np, fin_tok_np, fin_sc_np, n_group,
                            options.length_penalty, eot))]
     else:
-        if options.temperature == 0:
-            with_grammar = not options.without_timestamps
-            emb = dec.token_emb
-
-            def epilogue(x, flags):
-                return fused_logit_aggregates(x, emb, suppress_t, ts_mask, flags,
-                                              ts_begin, eot, with_grammar)
-
-            tokens, sum_logprobs = _greedy_loop(step, filt, logits, epilogue,
-                                                with_grammar=with_grammar, **loop)
-        else:
-            if generator is None:
-                generator = torch.Generator(device=device).manual_seed(0)
-            tokens, sum_logprobs = _sample_loop(
-                step, filt, logits, temperature=options.temperature,
-                generator=generator, **loop)
+        tokens, sum_logprobs = pending.outputs
         chosen = select_best_of(tokens.cpu().numpy(), sum_logprobs.cpu().numpy(),
                                 n_group, eot, options.length_penalty)
 
+    xa = pending.xa if with_features else None
     results = []
     language = tokenizer.language or 'en'
     for b, (row, seq, avg_logprob) in enumerate(chosen):
         text_tokens = [int(t) for t in seq]
         text = tokenizer.decode([t for t in text_tokens if t < eot]).strip()
         results.append(DecodingResult(
-            audio_features=xa[b] if with_features else None,
+            audio_features=xa[b] if xa is not None else None,
             language=language,
             tokens=text_tokens,
             text=text,

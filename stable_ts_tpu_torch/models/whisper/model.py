@@ -243,6 +243,13 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
     n_head = decoder.n_head
     d = decoder.token_emb.shape[1]
     dh = d // n_head
+    if capture_qk:
+        # uploaded before any kernel is queued: a copy from pageable memory
+        # waits for the stream it is queued on
+        heads = (torch.arange(n_head, device=tokens.device)[None].expand(
+                     len(decoder.blocks), n_head) if capture_index is None
+                 else torch.tensor(np.asarray(capture_index), dtype=torch.long,
+                                      device=tokens.device))
     x = _embed(decoder, tokens)
     causal = _causal_mask(n_tok, x.device)
     qks = []
@@ -257,11 +264,8 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
         x = x + ca.out(flash_attention(q, k, ca.v(xa), n_head, dh ** -0.5))
         x = x + blk.mlp(blk.mlp_ln(x))
         if capture_qk:
-            heads = torch.tensor(range(n_head) if capture_index is None
-                                 else np.asarray(capture_index)[layer],
-                                 dtype=torch.long, device=x.device)
-            qh = q.reshape(b, n_tok, n_head, dh).transpose(1, 2)[:, heads]
-            kh = k.reshape(b, -1, n_head, dh).transpose(1, 2)[:, heads]
+            qh = q.reshape(b, n_tok, n_head, dh).transpose(1, 2)[:, heads[layer]]
+            kh = k.reshape(b, -1, n_head, dh).transpose(1, 2)[:, heads[layer]]
             scale = dh ** -0.25
             qk = (qh * scale).float() @ (kh * scale).float().transpose(-1, -2)
             qks.append(qk.to(torch.bfloat16))

@@ -19,7 +19,12 @@ capture pass on the same mel and select their own heads; their weights
 join the main model's before the head mean and their token probabilities
 average in. Either way the DTW cost comes from the kernel
 (``ops/dtw.py``), and the host walks the traceback for the per-token jump
-frames. The word splitting and assembly helpers below are host code,
+frames. The batched driver scores a group's padded capture pass with the
+masked twins of these scorers: :func:`legacy_weights_batched` (every
+window at once), :func:`dynamic_weights_device` and
+:func:`new_aligner_matrix_device` (one window at a time, the full capture
+kept on the device), each bounding a window by its real frames and token
+rows. The word splitting and assembly helpers below are host code,
 carried over because their JAX module imports jax.
 """
 import string
@@ -98,10 +103,13 @@ def compute_qks_and_probs(model, dims, tokenizer, text_tokens: Sequence[int],
     return qks[:, 0], text_token_probs.tolist(), audio_features
 
 
-def reflect_src(length: int, n_frames: int, device=None) -> torch.Tensor:
+def reflect_src(length, n_frames: int, device=None) -> torch.Tensor:
     """Column sources that write np.pad-'reflect' continuations past a
     crop boundary: column >= length reads column 2*length - 2 - column
-    (timing.py:108-121)."""
+    (timing.py:108-121). ``length`` is an int, or a (B, 1) tensor of each
+    window's length, which gives (B, n_frames) sources."""
+    if isinstance(length, torch.Tensor):
+        device = length.device
     idx = torch.arange(n_frames, device=device)
     return torch.where(idx < length, idx,
                        torch.clamp(2 * length - 2 - idx, 0, n_frames - 1))
@@ -124,6 +132,91 @@ def legacy_head_weights(qks_sel: torch.Tensor, max_qk_len: int, sot_len: int,
     w = (w - mean) / torch.where(std > 0, std, 1.0)
     w = w[..., reflect_src(max_qk_len, frames, w.device)]
     return median_filter(w, medfilt_width)
+
+
+def _zscore_rows(w: torch.Tensor, row_counts) -> torch.Tensor:
+    """(..., rows, F) standardized over each window's first ``row_counts``
+    rows (an int, or a tensor broadcast against (..., 1, 1)); a column with
+    std 0 keeps its centred values (NaNs would poison the DTW)."""
+    row_ok = torch.arange(w.shape[-2], device=w.device)[:, None] < row_counts
+    count = (row_counts.float() if isinstance(row_counts, torch.Tensor)
+             else float(row_counts))
+    mean = torch.where(row_ok, w, 0.0).sum(dim=-2, keepdim=True) / count
+    var = torch.where(row_ok, (w - mean) ** 2, 0.0).sum(dim=-2, keepdim=True) / count
+    std = torch.sqrt(var)
+    return (w - mean) / torch.where(std > 0, std, 1.0)
+
+
+def _masked_softmax(w: torch.Tensor, col_ok: torch.Tensor, qk_scale: float):
+    w = torch.where(col_ok, w * qk_scale, -torch.inf)
+    return torch.where(col_ok, torch.softmax(w, dim=-1), 0.0)
+
+
+@torch.inference_mode()
+def legacy_weights_batched(qks_sel: torch.Tensor, qk_lens: torch.Tensor,
+                           row_counts: torch.Tensor, sot_len: int,
+                           qk_scale: float, medfilt_width: int) -> torch.Tensor:
+    """The legacy weights of many windows at once (timing.py:168-207),
+    meaned over the selected heads. qks_sel (n_sel, B, T, F) bf16; qk_lens
+    (B,) real frames and row_counts (B,) real token rows (n_text + 1) per
+    window. Columns past a window's frames are masked out of the softmax
+    and rows past its tokens out of the normalization; columns >= qk_len
+    of the result hold the reflect continuation of the crop, so the kept
+    columns equal the reference's crop-first filter. Returns (B, T', F)
+    f32: bound each window's DTW at (row_count, qk_len)."""
+    w = qks_sel[:, :, sot_len:-1, :].float()
+    n_frames = w.shape[-1]
+    lens = qk_lens.to(w.device).long()
+    col_ok = torch.arange(n_frames, device=w.device) < lens[None, :, None, None]
+    w = _masked_softmax(w, col_ok, qk_scale)
+    w = _zscore_rows(w, row_counts.to(w.device)[None, :, None, None])
+    src = reflect_src(lens[:, None], n_frames)                 # (B, F)
+    w = torch.gather(w, -1, src[None, :, None, :].expand(w.shape))
+    return median_filter(w, medfilt_width).mean(dim=0)
+
+
+def dynamic_top_heads(w: torch.Tensor, peaks: Optional[torch.Tensor],
+                      heads_count: int) -> torch.Tensor:
+    """Per token, the ``heads_count`` heads whose attention lies nearest
+    the peak (timing.py:334-382): w (L·H, T', F) soft-maxed weights;
+    ``peaks`` (T',) target frames or None for each head's own argmax.
+    Returns (T', k) head indices, the smallest score first and the lower
+    index first among equal scores, as ``lax.top_k`` of the negated
+    scores orders them."""
+    frames = torch.arange(w.shape[-1], device=w.device, dtype=torch.float32)
+    if peaks is None:
+        pk = w.argmax(dim=-1, keepdim=True).float()
+    else:
+        pk = peaks.to(w.device).float()[None, :, None]
+    scores = ((pk - frames).abs() / 1500.0 * w).sum(dim=-1)    # (L·H, T')
+    order = torch.sort(-scores.t(), dim=-1, descending=True, stable=True)[1]
+    return order[:, :heads_count]
+
+
+@torch.inference_mode()
+def dynamic_weights_device(qks: torch.Tensor, qk_len: int, row_count: int,
+                           peaks: Optional[torch.Tensor], sot_len: int,
+                           qk_scale: float, medfilt_width: int,
+                           heads_count: int) -> torch.Tensor:
+    """Dynamic head selection for ONE window on the capture's device
+    (timing.py:334-382): the reference's per-token scoring with masking in
+    place of cropping (``qk_len`` frames, ``row_count`` token rows in the
+    normalization), so the (L, H, T, F) capture stays on the card.
+    ``peaks``: (T',) peak targets (the iterated refinement's midpoints of
+    the previous jumps) or None. Returns (T', F) f32, meaned over the
+    selected heads; columns >= qk_len hold the crop's reflection."""
+    L, H, T, F = qks.shape
+    heads_count = min(heads_count, L * H)
+    w = qks.reshape(L * H, T, F)[:, sot_len:-1, :].float()
+    col_ok = torch.arange(F, device=w.device) < qk_len
+    w = _masked_softmax(w, col_ok, qk_scale)
+    idx = dynamic_top_heads(w, peaks, heads_count)             # (T', k)
+    rows = torch.arange(w.shape[1], device=w.device)
+    selected = w[idx.t(), rows[None, :]]                        # (k, T', F)
+    del w
+    selected = _zscore_rows(selected, int(row_count))
+    selected = selected[..., reflect_src(qk_len, F, qks.device)]
+    return median_filter(selected, medfilt_width).mean(dim=0)
 
 
 def parse_dynamic_heads(dynamic_heads) -> Tuple[Optional[int], int]:
@@ -207,16 +300,19 @@ def new_aligner_head_chunk(n_rows: int, n_frames: int) -> int:
 
 def _new_aligner_weights(qks: torch.Tensor, src: torch.Tensor,
                          col_ok: torch.Tensor, qk_scale: float,
-                         medfilt_width: int) -> torch.Tensor:
+                         medfilt_width: int,
+                         n_rows: Optional[int] = None) -> torch.Tensor:
     """(n, T, F) raw QK -> the 'new' aligner's f32 head weights: the raw
     columns reflected at the crop (the reference filters the cropped
     capture, timing.py:138-141), median filtered, then soft-maxed over
-    the real frames; columns past the crop hold 0."""
+    the real frames; columns past the crop hold 0, and so do rows from
+    ``n_rows`` on (a padded window's pad rows, timing.py:407-413)."""
     w = qks.float()[..., src]
     w = median_filter(w, medfilt_width)
-    w = torch.where(col_ok, w * qk_scale, -torch.inf)
-    w = torch.softmax(w, dim=-1)
-    return torch.where(col_ok, w, 0.0)
+    w = _masked_softmax(w, col_ok, qk_scale)
+    if n_rows is not None:
+        w[:, n_rows:] = 0.0
+    return w
 
 
 def _new_aligner_scores(w: torch.Tensor, w_colnorm: float, w_rownorm: float,
@@ -239,7 +335,8 @@ def _new_aligner_scores(w: torch.Tensor, w_colnorm: float, w_rownorm: float,
 def new_aligner_top_heads(qks: torch.Tensor, max_qk_len: int, qk_scale: float,
                           medfilt_width: int, topk: int, w_colnorm: float,
                           w_rownorm: float, w_coverage: float,
-                          head_chunk: Optional[int] = None):
+                          head_chunk: Optional[int] = None,
+                          n_rows: Optional[int] = None):
     """Score all L·H heads of qks (L, H, T, F) by column and row norms (and
     coverage) on qks's device (timing.py:440-466); returns the top-k heads'
     flat indices (L·H order) and their weights (k, T, F) f32, ordered as
@@ -249,7 +346,8 @@ def new_aligner_top_heads(qks: torch.Tensor, max_qk_len: int, qk_scale: float,
     The heads are filtered and scored ``head_chunk`` at a time (default:
     :func:`new_aligner_head_chunk`), keeping the best k as the chunks
     pass; each head's score is its own, so the result does not depend on
-    the chunk."""
+    the chunk. ``n_rows``: token rows from this one on are zeroed before
+    scoring (a batched pass's pad rows)."""
     L, H, T, F = qks.shape
     flat = qks.reshape(L * H, T, F)
     src = reflect_src(max_qk_len, F, qks.device)
@@ -258,7 +356,7 @@ def new_aligner_top_heads(qks: torch.Tensor, max_qk_len: int, qk_scale: float,
     best_scores = best_idx = best_w = None
     for start in range(0, L * H, chunk):
         w = _new_aligner_weights(flat[start:start + chunk], src, col_ok,
-                                 qk_scale, medfilt_width)
+                                 qk_scale, medfilt_width, n_rows)
         scores = _new_aligner_scores(w, w_colnorm, w_rownorm, w_coverage)
         idx = torch.arange(start, start + w.shape[0], device=qks.device)
         if best_w is not None:
@@ -275,16 +373,34 @@ def new_aligner_top_heads(qks: torch.Tensor, max_qk_len: int, qk_scale: float,
 def _new_aligner_matrix(qks: torch.Tensor, max_qk_len: int, sot_len: int,
                         qk_scale: float, medfilt_width: int, topk: int,
                         w_colnorm: float, w_rownorm: float, w_coverage: float,
-                        head_chunk: Optional[int] = None) -> torch.Tensor:
+                        head_chunk: Optional[int] = None,
+                        n_rows: Optional[int] = None) -> torch.Tensor:
     """'new' aligner on the capture's device (timing.py:440-471): the mean
     of the top-k heads' column-normalized weights
     (:func:`new_aligner_top_heads`), (T - sot_len - 1, F) f32; columns >=
     max_qk_len are 0."""
     _, w = new_aligner_top_heads(qks, max_qk_len, qk_scale, medfilt_width, topk,
-                                 w_colnorm, w_rownorm, w_coverage, head_chunk)
+                                 w_colnorm, w_rownorm, w_coverage, head_chunk,
+                                 n_rows)
     col_norm = torch.linalg.vector_norm(w, dim=-2, keepdim=True)
     matrix = (w / torch.where(col_norm == 0, 1.0, col_norm)).mean(dim=0)
     return matrix[sot_len:-1]
+
+
+@torch.inference_mode()
+def new_aligner_matrix_device(qks: torch.Tensor, qk_len: int, row_count: int,
+                              sot_len: int, qk_scale: float, medfilt_width: int,
+                              topk: int, w_colnorm: float, w_rownorm: float,
+                              w_coverage: float,
+                              head_chunk: Optional[int] = None) -> torch.Tensor:
+    """The 'new' aligner for ONE window of a batched pass (timing.py:385-427):
+    qks (L, H, T, F) whose token rows past sot_len + row_count + 1 (the SOT
+    rows, no-timestamps and text rows, EOT) are padding, zeroed before the
+    heads are scored. Scored a chunk of heads at a time, as
+    :func:`new_aligner_top_heads`. Returns (T - sot_len - 1, F) f32."""
+    return _new_aligner_matrix(qks, qk_len, sot_len, qk_scale, medfilt_width,
+                               topk, w_colnorm, w_rownorm, w_coverage,
+                               head_chunk, n_rows=sot_len + int(row_count) + 1)
 
 
 def _new_aligner_matrix_host(qks: np.ndarray, max_qk_len: int, sot_len: int,

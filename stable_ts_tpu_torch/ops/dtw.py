@@ -9,10 +9,11 @@ of the JAX package (one prefix sum and one prefix min per row) with the
 prefix sums in f64, rounded to f32 once, so the kernel and the twin
 produce the same f32 costs.
 
-The traceback (:func:`dtw_jumps`) runs on the host over the downloaded cost
-matrix and returns exactly ``dtw_jumps_device``'s per-token jump frames:
-whisper's strict-< tie order (diagonal only when strictly smallest, then
-up, ties move left), walking from each matrix's real corner (n, m).
+The traceback (:func:`dtw_jumps`, :func:`dtw_jumps_batched` for a batch)
+runs on the host over the downloaded cost matrix and returns exactly
+``dtw_jumps_device``'s per-token jump frames: whisper's strict-< tie order
+(diagonal only when strictly smallest, then up, ties move left), walking
+from each matrix's real corner (n, m).
 """
 import numpy as np
 import torch
@@ -94,3 +95,17 @@ def dtw_jumps(cost: np.ndarray, n: int, m: int) -> np.ndarray:
         if diag or not (diag or up):
             j -= 1
     return jt
+
+
+def dtw_jumps_batched(cost: np.ndarray, n_rows, m_cols) -> np.ndarray:
+    """:func:`dtw_jumps` of each window of a (B, R+1, F+1) cost batch,
+    walking from (n_rows[b], m_cols[b]): (B, R) int32, equal to JAX's
+    ``dtw_jumps_device`` (ops/dtw.py:231-278). The batched driver downloads
+    the group's costs once and walks them here; padded rows past a window's
+    corner are never read. A window read a little past 30 s (a loader
+    rounds its chunks up) has one frame more than the matrix: its walk
+    starts at the last column, where JAX's clamped reads send it."""
+    cost = np.asarray(cost, dtype=np.float32)
+    last = cost.shape[-1] - 1
+    return np.stack([dtw_jumps(c, int(n), min(int(m), last))
+                     for c, n, m in zip(cost, n_rows, m_cols)])

@@ -15,8 +15,9 @@ decoding (the silence mask on greedy and beam steps, a prompt, resets,
 skips, clips, resuming, no regrouping, the voice band, translation) give
 equal text and SRT bytes too. A fresh interpreter that transcribes and
 takes a train step with the port loads neither jax, nor optax, nor any
-module of stable_ts_tpu; it also writes a checkpoint, loads it and
-transcribes with the 'new' aligner and with an extra model. Importing the
+module of stable_ts_tpu; it also runs ``transcribe_batched``, writes a
+checkpoint, loads it and transcribes with the 'new' aligner and with an
+extra model. Importing the
 port tunes the host allocator, as importing stable_ts_tpu does.
 ``transcribe_minimal`` gives JAX's text and SRT bytes, and
 ``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``."""
@@ -153,6 +154,8 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
                                   verbose=None)
         srt = result.to_srt_vtt(word_level=True)
         assert isinstance(srt, str)
+        assert model.transcribe_batched(audio, language='en', temperature=0,
+                                        verbose=None, batch_size=2).segments
         for kw in (dict(temperature=(0, 0.5), best_of=2, logprob_threshold=100),
                    dict(temperature=0, beam_size=2)):
             assert model.transcribe(audio, language='en', verbose=None,
