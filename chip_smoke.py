@@ -12,6 +12,15 @@ step:
   projection on every step);
 - ladder: 30 s on temperature=(0.0, 0.4, 0.8) with best_of=5 (random
   weights fail every rung, so every rung runs);
+- align: ``model.align`` of the greedy 20-s request's own transcript on
+  its clip (which must launch flash and the DTW), its wall and seconds per
+  audio second beside that request's; then ``model.align_words`` over a
+  60-s grid of 10-s segments at 2.2 words a second: with ``parallel`` at
+  its default on the card it must make one encoder and one capture pass
+  (exactly 64 flash launches) and exactly one DTW launch for the six
+  segments, with ``parallel=False`` six times 64 flash and one DTW; the
+  two must give the same words in the same order (their largest time
+  difference is logged, not gated);
 - no heads: the same weights with no known alignment heads, 10 s greedy
   with language='en' (6 heads selected per token from the full capture);
 - checkpoint: the same weights written as an OpenAI ``large-v3.pt``
@@ -41,8 +50,10 @@ step:
   greedy 75 s's;
 - dq: the same weights quantized to int8 on the card (``dq=True``), with
   packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
-  30 s beam_size=5 with no language, and 60 s batched greedy in a group
-  of 2 (the encoder's weight-only products at M = 3000);
+  30 s beam_size=5 with no language, 60 s batched greedy in a group
+  of 2 (the encoder's weight-only products at M = 3000), and the 60-s
+  ``align_words`` (64 flash, one DTW and the weight-only products at
+  M = 8 x 1500);
 - train: a fresh bf16 model, three steps of ``make_train_step`` (AdamW as
   optax.adamw(1e-5)) at batch 2 windows and 64 tokens, the second with a
   label mask; each step must launch the flash forward and both backward
@@ -51,12 +62,13 @@ step:
   window's encoder forward under torch.profiler (device busy share).
 
 The launch counts are reset before each path (each train step, each
-batched request) and read after it; the script fails unless each path
+batched and each align request) and read after it; the script fails unless each path
 launched the kernels it runs, all thirteen entries among them. Every
 kernel is also held against its twin at the batched driver's shapes
 (flash over 8 windows, the self and cross entries at 8 rows, the group
 entry over 4 windows x 5 beams, the beam entry at 20 rows, int4 at 2 rows,
-the epilogue at B = 8, vocab_proj at M = 20, woq_matmul at M = 3000, the
+the epilogue at B = 8, vocab_proj at M = 20, woq_matmul at M = 3000 and
+12000, the
 DTW over (8, 252, 1500) in one launch beside 8 launches). A tiny f32
 model also takes three train steps on the CPU (twins) and on the card
 (kernels), which must agree, and transcribes alike through both (with
@@ -81,7 +93,8 @@ torch.mm of the same product beside each as "yardstick_mm_ms" (not the
 same function), and the DTW's has its time a row of the chain
 ("ms_per_row"); the kernels' numbers at the batched shapes are under "batched" (the
 epilogue's B = 8 under "B=8", vocab_proj's M = 20 under "M=20",
-woq_matmul's M = 3000 under "M=3000"). The line before it gives the run's
+woq_matmul's M = 3000 and 12000 under "M=3000" and "M=12000"). The line
+before it gives the run's
 elapsed seconds; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the package
 beside it, the script fails and prints no result.
@@ -89,6 +102,7 @@ beside it, the script fails and prints no result.
 import copy
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -730,8 +744,10 @@ def woq_checks(torch, results: dict, randn) -> None:
     from stable_ts_tpu_torch.ops import woq_matmul as woq
     shapes = [(m, k, n, torch.bfloat16, 1e-5) for m in (1, 5, 230, 1500)
               for k, n in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))]
-    # the batched dq encoder: two windows' 1500 frames a product
+    # the batched dq encoder: two windows' 1500 frames a product; the dq
+    # align_words: eight rows of 1500 frames
     shapes.append((3000, 1280, 5120, torch.bfloat16, 1e-5))
+    shapes.append((12000, 1280, 5120, torch.bfloat16, 1e-5))
     shapes.append((230, 1280, 5120, torch.float32, 1e-5))
     weights = {}
     for m, k, n, dtype, tol in shapes:
@@ -764,8 +780,8 @@ def woq_checks(torch, results: dict, randn) -> None:
             f'{ev:.4f} ms')
         if (m, k, n) == (1, 1280, 5120):
             results['woq_matmul'] = numbers
-        elif (m, k, n) == (3000, 1280, 5120):
-            results['woq_matmul']['M=3000'] = numbers
+        elif (m, k, n) in ((3000, 1280, 5120), (12000, 1280, 5120)):
+            results['woq_matmul'][f'M={m}'] = numbers
 
 
 def vocab_checks(torch, results: dict, randn) -> None:
@@ -1158,6 +1174,12 @@ def main() -> int:
     sequential = []
     counts = drive_paths(torch, model, paths, ladder, sequential)
 
+    # -- forced alignment: align the 20-s transcript, align_words over 60 s -------------
+    align_segments = align_words_grid(60.0)
+    for name, n in align_paths(torch, model, audio, sequential[1],
+                               align_segments).items():
+        counts[name] = counts.get(name, 0) + n
+
     # -- no known heads: the same weights, 6 heads selected per token ------------------
     no_heads = WhisperTorch(dims, params, device='cuda', name=MODEL + '-no-heads',
                             ranks=ranks, alignment_heads=None)
@@ -1240,6 +1262,14 @@ def main() -> int:
              dict(batch_size=2, language='en', temperature=0, kv_quant=4),
              ('flash_attn', 'woq_matmul', 'cross_attn_decode_int4', 'logit_epilogue',
               'self_attn_decode', 'dtw_cost'))], batched_reqs).items():
+        counts[name] = counts.get(name, 0) + n
+    n_seg = len(align_segments)
+    _, dq_counts, _ = run_align(
+        torch, 'dq align_words', f'60 s, {n_seg} segments, parallel (the default)',
+        lambda: dq_model.align_words(audio[:60 * SR], [dict(s) for s in align_segments],
+                                     language='en', verbose=None),
+        60.0, exact={'flash_attn': 64, 'dtw_cost': 1}, needed=('woq_matmul',))
+    for name, n in dq_counts.items():
         counts[name] = counts.get(name, 0) + n
 
     # -- the train path: a fresh float model (the dq path quantized the old one) ---------
@@ -1521,7 +1551,7 @@ def drive_paths(torch, model, paths, ladder, requests_out=None) -> dict:
                 if requests_out is not None:
                     after = _build.launch_counts()
                     requests_out.append(dict(
-                        label=label, wall=wall, duration=duration,
+                        label=label, wall=wall, duration=duration, text=result.text,
                         windows=calls.get('encode', 0),
                         word_timing_s=phases.get('word_timing', 0.0),
                         word_timing_peak_bytes=peak[0],
@@ -1536,6 +1566,116 @@ def drive_paths(torch, model, paths, ladder, requests_out=None) -> dict:
                 counts[name] = counts.get(name, 0) + n
     finally:
         decoding.decoder_step, driver.add_word_timestamps = step_fn, word_fn
+    return counts
+
+
+def align_words_grid(seconds: float, seg_dur: float = 10.0, rate: float = 2.2) -> list:
+    """A dense grid of ``seg_dur``-s segments at ``rate`` words a second of
+    short synthetic words (``bench.py:main_align_words``): known segment
+    boundaries, the timing pass at a production word density."""
+    segs, t, i = [], 0.0, 0
+    while t < seconds - 1.0:
+        end = min(t + seg_dur, seconds)
+        n = int((end - t) * rate)
+        segs.append(dict(start=round(t, 2), end=round(end, 2),
+                         text=' '.join(f'w{(i + j) % 97:02d}' for j in range(n))))
+        i += n
+        t = end
+    return segs
+
+
+def run_align(torch, path: str, label: str, fn, duration: float, exact=None,
+              needed=()):
+    """One align request (``fn``) with the launch counts reset before it and
+    read after it. Logs its wall, seconds per audio second, launches and
+    peak device memory over what was resident; fails unless it gave words
+    inside the clip, launched every kernel of ``needed`` and exactly the
+    launches of ``exact``. Returns (result, launches, summary)."""
+    from stable_ts_tpu_torch import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - resident
+    words = result.all_words() if result is not None else []
+    log(f'[{path}] request {label}: wall {wall:.3f} s ({wall / duration:.4f} s per '
+        f'audio second), {len(result.segments) if result is not None else 0} '
+        f'segments, {len(words)} words; launches {launches}; peak +{peak / 1e9:.3f} GB '
+        f'over the resident {resident / 1e9:.3f} GB')
+    if not words:
+        raise AssertionError(f'{path}: no words')
+    for w in words:
+        if not (math.isfinite(w.start) and math.isfinite(w.end)
+                and 0 <= w.start <= w.end <= duration + 0.02):
+            raise AssertionError(f'{path}: word {w.word!r} at {w.start}-{w.end} '
+                                 f'outside the {duration} s clip')
+    for name in needed:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f'kernel {name} was not launched on the {path} path')
+    for name, n in (exact or {}).items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f'{path}: {launches.get(name, 0)} {name} launches, '
+                                 f'expected {n}')
+    return result, launches, dict(wall=wall, duration=duration, peak_bytes=peak)
+
+
+def align_paths(torch, model, audio, greedy_20: dict, segments: list) -> dict:
+    """``model.align`` of the 20-s greedy request's own transcript on its
+    clip (the product case: arbitrary text under random weights runs the
+    failure ladder instead), beside that request's wall; then
+    ``model.align_words`` over a 60-s grid of 10-s segments, with
+    ``parallel`` at its default on the card (one encoder and one capture
+    pass: 64 flash launches, and one DTW launch for every segment) and
+    with ``parallel=False`` (64 flash launches and one DTW a segment),
+    which must give the same words in the same order. Returns the
+    launches summed over the requests."""
+    counts = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+
+    text = greedy_20['text']
+    if not text.strip():
+        raise AssertionError('align: the 20-s greedy request transcribed no text')
+    clip = audio[75 * SR:95 * SR]
+    _, launches, summary = run_align(
+        torch, 'align', f'20 s, the greedy transcript ({len(text)} characters)',
+        lambda: model.align(clip, text, language='en', verbose=None), 20.0,
+        needed=('flash_attn', 'dtw_cost'))
+    add(launches)
+    log(f'[align] seconds per audio second, same run: align 20 s '
+        f'{summary["wall"] / 20.0:.4f} (wall {summary["wall"]:.3f} s) against greedy '
+        f'transcribe {greedy_20["label"]} {greedy_20["wall"] / greedy_20["duration"]:.4f} '
+        f'(wall {greedy_20["wall"]:.3f} s): '
+        f'{greedy_20["wall"] / summary["wall"]:.2f}x')
+
+    clip = audio[:60 * SR]
+    n_seg = len(segments)
+    passes = model.dims.n_audio_layer + model.dims.n_text_layer   # 64 at large-v3
+    results = {}
+    for parallel, exact in ((None, {'flash_attn': passes, 'dtw_cost': 1}),
+                            (False, {'flash_attn': passes * n_seg, 'dtw_cost': n_seg})):
+        kw = {} if parallel is None else dict(parallel=parallel)
+        label = (f'60 s, {n_seg} segments of 10 s, '
+                 + ('parallel (the default)' if parallel is None else 'parallel=False'))
+        results[parallel], launches, _ = run_align(
+            torch, 'align_words', label,
+            lambda: model.align_words(clip, [dict(s) for s in segments],
+                                      language='en', verbose=None, **kw),
+            60.0, exact=exact)
+        add(launches)
+    par, seq = (results[None].all_words(), results[False].all_words())
+    if [w.word for w in par] != [w.word for w in seq]:
+        raise AssertionError('align_words: parallel and sequential words differ')
+    diff = max(max(abs(a.start - b.start), abs(a.end - b.end)) for a, b in zip(par, seq))
+    log(f'[align_words] parallel against parallel=False: {len(par)} words equal, '
+        f'largest start or end difference {diff:.3f} s')
     return counts
 
 

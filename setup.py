@@ -14,7 +14,8 @@ setup(
     python_requires='>=3.10',
     packages=find_packages(exclude=['tests*']),
     package_data={'stable_ts_tpu': ['native/*.cpp'],
-                  'stable_ts_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+                  'stable_ts_tpu_torch': ['native/*.cpp', 'csrc/*.cu',
+                                          'csrc/*.cuh']},
     install_requires=[
         'numpy',
         'jax',

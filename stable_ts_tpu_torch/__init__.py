@@ -44,6 +44,12 @@ _LAZY = {
     'WhisperTorch': 'stable_ts_tpu_torch.loaders',
     'load_test_model': 'stable_ts_tpu_torch.loaders',
     'from_jax': 'stable_ts_tpu_torch.loaders',
+    'align': 'stable_ts_tpu_torch.alignment',
+    'align_words': 'stable_ts_tpu_torch.alignment',
+    'AllOptions': 'stable_ts_tpu_torch.options',
+    'transcribe_any': 'stable_ts_tpu_torch.non_whisper',
+    'Aligner': 'stable_ts_tpu_torch.non_whisper.alignment',
+    'Refiner': 'stable_ts_tpu_torch.non_whisper.refinement',
     'transcribe_stable': 'stable_ts_tpu_torch.transcribe',
     'transcribe_minimal': 'stable_ts_tpu_torch.transcribe',
     'make_train_step': 'stable_ts_tpu_torch.models.whisper.train',

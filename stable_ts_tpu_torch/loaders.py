@@ -166,6 +166,24 @@ class WhisperTorch:
         from .batched import transcribe_batched
         return transcribe_batched(self, audio, **kwargs)
 
+    def align(self, audio, text, **kwargs):
+        from .alignment import align
+        return align(self, audio, text, **kwargs)
+
+    def align_words(self, audio, result, **kwargs):
+        from .alignment import align_words
+        return align_words(self, audio, result, **kwargs)
+
+    def refine(self, audio, result, **kwargs):
+        """Still to be ported (ROADMAP.md, item 5b)."""
+        raise NotImplementedError('refine is still to be ported to '
+                                  'stable_ts_tpu_torch (ROADMAP.md)')
+
+    def locate(self, audio, text, **kwargs):
+        """Still to be ported (ROADMAP.md, item 5b)."""
+        raise NotImplementedError('locate is still to be ported to '
+                                  'stable_ts_tpu_torch (ROADMAP.md)')
+
 
 def load_test_model(seed: int = 0, device='cuda', **kwargs) -> WhisperTorch:
     """A miniature random-weight model (tiny_test_dims, drawn from a torch
@@ -289,6 +307,15 @@ def load_faster_whisper(model_size_or_path: str, **model_init_options):
                               'stable_ts_tpu_torch (ROADMAP.md)')
 
 
+def is_faster_whisper_model(model) -> bool:
+    """True for a (real or fake) faster_whisper.WhisperModel: something
+    with a CTranslate2 core and a feature extractor but no ``params``
+    (stable_ts_tpu/backends/faster_whisper.py:31-36)."""
+    return (not hasattr(model, 'params')
+            and hasattr(model, 'feature_extractor')
+            and hasattr(model, 'model'))
+
+
 def modify_model(model):
     """Give ``model`` the stabilized method surface (the reference's
     ``modify_model``, original_whisper.py:931). A :class:`WhisperTorch`
@@ -297,11 +324,10 @@ def modify_model(model):
     ``NotImplementedError``; anything else raises ``TypeError``."""
     if isinstance(model, WhisperTorch):
         return model
-    if (not hasattr(model, 'params') and hasattr(model, 'feature_extractor')
-            and hasattr(model, 'model')):
+    if is_faster_whisper_model(model):
         raise NotImplementedError('faster-whisper models are still to be '
                                   'ported to stable_ts_tpu_torch (ROADMAP.md)')
     raise TypeError(
         f'cannot modify {type(model).__name__!r}: expected a WhisperTorch. '
         'Other ASR engines plug in through transcribe_any / Aligner / '
-        'Refiner, still to be ported (ROADMAP.md).')
+        'Refiner.')

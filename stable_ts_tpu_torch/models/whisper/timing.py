@@ -35,9 +35,10 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...constants import N_SAMPLES_PER_TOKEN, TOKENS_PER_SECOND
-from ...ops.dtw import dtw_cost, dtw_jumps
+from ...constants import N_FRAMES, N_SAMPLES_PER_TOKEN, TOKENS_PER_SECOND
+from ...ops.dtw import dtw_cost, dtw_jumps, dtw_jumps_batched
 from ...ops.median import median_filter
+from ...ops.mel import log_mel_spectrogram
 from .model import decoder_apply, encoder_apply
 
 
@@ -173,6 +174,44 @@ def legacy_weights_batched(qks_sel: torch.Tensor, qk_lens: torch.Tensor,
     src = reflect_src(lens[:, None], n_frames)                 # (B, F)
     w = torch.gather(w, -1, src[None, :, None, :].expand(w.shape))
     return median_filter(w, medfilt_width).mean(dim=0)
+
+
+@torch.inference_mode()
+def _fused_align_window(model, capture_index, slots, audio: torch.Tensor,
+                        tokens: torch.Tensor, qk_len: int, row_count: int, *,
+                        n_mels: int, sot_len: int, eot: int,
+                        medfilt_width: int = 7) -> np.ndarray:
+    """A whole single-window timing pass for ``align`` (timing.py:237-279):
+    mel -> encoder -> teacher-forced decoder with the selective capture ->
+    next-token probabilities -> legacy head weights -> DTW cost on the
+    model's device, then one download of the cost and the probabilities
+    and the traceback on the host. JAX compiles this into one program; here
+    it is the same ops in a row.
+
+    audio: (1, N_SAMPLES) f32, zero-padded to the full window. tokens:
+    (1, T_pad) = sot_seq + no_timestamps + text + eot, right-padded with
+    eot (exact under the causal mask). qk_len: real audio frames;
+    row_count: n_text + 1. Returns JAX's packed f32 vector
+    [jump frames (T'), next-token probabilities (T_pad - 1)]."""
+    from ...batched import _next_token_probs
+    mel = log_mel_spectrogram(audio, n_mels)[..., :N_FRAMES]
+    xa = encoder_apply(model.encoder, mel)
+    logits, qks = decoder_apply(model.decoder, tokens, xa, capture_qk=True,
+                                capture_index=capture_index)
+    probs = _next_token_probs(logits, tokens, eot)[0]          # (T_pad - 1,)
+    device = qks.device
+    layers = torch.tensor([layer for layer, _ in slots], device=device)
+    cols = torch.tensor([slot for _, slot in slots], device=device)
+    sel = qks[layers, :, cols]                            # (n_sel, 1, T_pad, F)
+    mats = legacy_weights_batched(sel, torch.tensor([qk_len], device=device),
+                                  torch.tensor([row_count], device=device),
+                                  sot_len, 1.0, medfilt_width)  # (1, T', F)
+    cost = dtw_cost(-mats)
+    packed = torch.cat([cost.flatten(), probs]).cpu().numpy()
+    n_cost = cost.numel()
+    jumps = dtw_jumps_batched(packed[:n_cost].reshape(cost.shape),
+                              [row_count], [qk_len])[0]
+    return np.concatenate([jumps.astype(np.float32), packed[n_cost:]])
 
 
 def dynamic_top_heads(w: torch.Tensor, peaks: Optional[torch.Tensor],
@@ -513,6 +552,7 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
                    audio_features: Optional[torch.Tensor] = None,
                    alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
                    dynamic_heads=None, aligner='legacy',
+                   precomputed: Optional[Tuple] = None,
                    extra_models=None) -> List[WordTimingRaw]:
     """Align ``text_tokens`` to audio (timing.py:522-700); per-word raw
     timings. ``model`` is the weights (a :class:`~.model.Whisper`).
@@ -525,7 +565,13 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
     (:class:`~stable_ts_tpu_torch.loaders.WhisperTorch` on the mel's
     device) each add their own heads' weights to the head mean and their
     token probabilities to the average; the 'new' aligner ignores them,
-    as the reference does."""
+    as the reference does.
+
+    ``precomputed``: (qks, text_token_probs) from a capture pass the
+    caller ran (the batched ``align_words``); no capture pass runs here.
+    qks is the full (L, H, T, F) capture or, with the legacy aligner and
+    known heads only, the already-selected (n_sel, T, F) head rows; it is
+    moved to the model's device."""
     if not (isinstance(aligner, dict) or aligner in ('new', 'legacy')):
         raise ValueError(f'aligner must be "new"/"legacy" or a dict, got {aligner!r}')
     if token_split is None:
@@ -549,14 +595,22 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
         if dynamic_heads is None and alignment_heads is None:
             dynamic_heads = True
         dynamic_count, iterations = parse_dynamic_heads(dynamic_heads)
+    legacy_known_heads = not use_new and not dynamic_count
     with torch.inference_mode():
         capture_index = slots = None
-        if not use_new and not dynamic_count:
-            capture_index, slots = build_head_capture_table(alignment_heads,
-                                                            dims.n_text_layer)
-        qks, text_token_probs, _ = compute_qks_and_probs(
-            model, dims, tokenizer, text_tokens, mel=mel,
-            audio_features=audio_features, capture_index=capture_index)
+        if precomputed is not None:
+            qks, text_token_probs = precomputed
+            qks = torch.as_tensor(qks).to(model.decoder.token_emb.device)
+            if qks.ndim == 3 and not legacy_known_heads:
+                raise ValueError('pre-selected qks require the legacy aligner '
+                                 'with known heads')
+        else:
+            if legacy_known_heads:
+                capture_index, slots = build_head_capture_table(
+                    alignment_heads, dims.n_text_layer)
+            qks, text_token_probs, _ = compute_qks_and_probs(
+                model, dims, tokenizer, text_tokens, mel=mel,
+                audio_features=audio_features, capture_index=capture_index)
         extra_weights = []
         if extra_models and not use_new:
             extra_weights, extra_probs = _extra_model_weights(
@@ -592,9 +646,15 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
                 jump_indices = matrix_to_jumps(
                     torch.from_numpy(matrix).to(qks.device))
         else:
-            weights = legacy_head_weights(gather_captured_heads(qks, slots),
-                                          max_qk_len, sot_len, qk_scale,
-                                          medfilt_width)
+            if slots is not None:
+                qks_sel = gather_captured_heads(qks, slots)
+            elif qks.ndim == 3:
+                qks_sel = qks      # selected by the caller's capture pass
+            else:
+                heads = torch.as_tensor(alignment_heads, device=qks.device)
+                qks_sel = qks[heads[:, 0], heads[:, 1]]
+            weights = legacy_head_weights(qks_sel, max_qk_len, sot_len,
+                                          qk_scale, medfilt_width)
             matrix = (torch.from_numpy(_mix(weights.cpu().numpy(), extra_weights,
                                             max_qk_len)).to(qks.device)
                       if extra_weights else weights.mean(dim=0))

@@ -224,3 +224,66 @@ def test_batched_word_timing_matches_jax(heads, options):
     kw = dict(language='en', temperature=0, verbose=None, batch_size=2, **options)
     _assert_same(port_model.transcribe_batched(audio, **kw),
                  jax_model.transcribe_batched(audio, **kw))
+
+
+def _tone_fixture():
+    """70 s: 8 s of tone, 4 s of silence, six times (JAX's fixture)."""
+    t = np.arange(SR * 8) / SR
+    tone = (np.sin(2 * np.pi * 440 * t) * 0.4).astype(np.float32)
+    return np.concatenate([tone, np.zeros(SR * 4, np.float32)] * 6)[:SR * 70]
+
+
+def test_jax_capture_gives_jax_words_on_the_tone_fixture(monkeypatch):
+    """Two beams in a group of three windows on JAX's tone fixture: one
+    word of the port's own run starts 1.18 s from JAX's. Fed JAX's own
+    selected capture, the port's batched word timing (legacy weights, the
+    DTW cost, the host traceback, word assembly) gives JAX's words, times
+    and probabilities exactly: only the bf16 capture differs (f32
+    products summed in another order, rounded to bf16), and the DTW path
+    crosses the silence at 68-70 s on a near-tie."""
+    import copy
+    import stable_ts_tpu.batched as jax_batched
+    from stable_ts_tpu.loaders import load_test_model as load_jax
+    from stable_ts_tpu.models.whisper import timing as jax_timing
+    from stable_ts_tpu_torch import batched
+    from stable_ts_tpu_torch.loaders import from_jax
+    from stable_ts_tpu_torch.models.whisper import timing
+    jax_model = load_jax(alignment_heads=HEADS)
+    port_model = from_jax(jax_model, device='cpu')
+    tokenizer = port_model.get_tokenizer(language='en', task='transcribe')
+    captures, compared = [], []
+    jax_weights = jax_timing.legacy_weights_batched
+    jax_finish = jax_batched._finish_word_timing
+
+    def record_capture(sel, qk_lens, row_counts, *args):
+        captures.append(np.asarray(sel))
+        return jax_weights(sel, qk_lens, row_counts, *args)
+
+    def finish_both(model, tok, pending, metas, segments, *args):
+        mine = copy.deepcopy(segments)
+        qks = torch.from_numpy(captures.pop(0).astype(np.float32)).to(torch.bfloat16)
+        pad = qks.shape[1] - len(pending['todo'])
+        mats = timing.legacy_weights_batched(
+            qks, torch.tensor(pending['max_qk_lens'] + [1] * pad),
+            torch.tensor(pending['row_counts'] + [1] * pad),
+            pending['sot_len'], 1.0, 7)
+        port_pending = dict(
+            pending, tok_probs=torch.from_numpy(np.array(pending['tok_probs'])),
+            cost=batched._dtw_cost_batched(-mats), ready=None, stream=None)
+        batched._finish_word_timing(port_model, tokenizer, port_pending, metas,
+                                    mine, *args)
+        jax_finish(model, tok, pending, metas, segments, *args)
+        compared.append((mine, segments))
+
+    monkeypatch.setattr(jax_timing, 'legacy_weights_batched', record_capture)
+    monkeypatch.setattr(jax_batched, '_finish_word_timing', finish_both)
+    jax_model.transcribe_batched(_tone_fixture(), language='en', temperature=0,
+                                 verbose=None, beam_size=2, batch_size=3)
+    assert compared and not captures
+    n_words = 0
+    for mine, theirs in compared:
+        for segs_mine, segs_theirs in zip(mine, theirs):
+            for a, b in zip(segs_mine or [], segs_theirs or []):
+                assert a['words'] == b['words']
+                n_words += len(a['words'])
+    assert n_words > 0

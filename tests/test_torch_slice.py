@@ -17,7 +17,7 @@ equal text and SRT bytes too. A fresh interpreter that transcribes and
 takes a train step with the port loads neither jax, nor optax, nor any
 module of stable_ts_tpu; it also runs ``transcribe_batched``, writes a
 checkpoint, loads it and transcribes with the 'new' aligner and with an
-extra model. Importing the
+extra model, and runs ``align`` and ``align_words``. Importing the
 port tunes the host allocator, as importing stable_ts_tpu does.
 ``transcribe_minimal`` gives JAX's text and SRT bytes, and
 ``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``."""
@@ -182,6 +182,15 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
         for kw in (dict(aligner='new'), dict(extra_models=[model])):
             assert loaded.transcribe(audio, language='en', temperature=0,
                                      verbose=None, **kw).segments
+        aligned = model.align(audio, ' hello world how are you', language='en',
+                              verbose=None)
+        assert aligned.has_words
+        segs = [dict(start=0.0, end=4.0, text=' hello world'),
+                dict(start=4.0, end=8.0, text=' how are you')]
+        for parallel in (False, True):
+            assert model.align_words(audio, [dict(s) for s in segs],
+                                     language='en', verbose=None,
+                                     parallel=parallel).has_words
         assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
         assert 'optax' not in sys.modules
         old = sorted(m for m in sys.modules
