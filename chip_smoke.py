@@ -21,6 +21,14 @@ step:
   segments, with ``parallel=False`` six times 64 flash and one DTW; the
   two must give the same words in the same order (their largest time
   difference is logged, not gated);
+- locate: ``model.locate`` of the first 4 tokens of the greedy 75-s
+  transcript in its clip: mode 2 (flash), modes 1 and 0 with
+  ``probability_threshold=0.0`` so that the confirmation decode forces
+  the target (the self and cross decode entries over float caches and
+  ``vocab_proj``; mode 0 also the DTW), and a mode-1 request whose fourth
+  token is a suppressed one at ``probability_threshold=1e-30``, which
+  must roll the decode back and re-prefill; each wall beside the greedy
+  75-s request's;
 - no heads: the same weights with no known alignment heads, 10 s greedy
   with language='en' (6 heads selected per token from the full capture);
 - checkpoint: the same weights written as an OpenAI ``large-v3.pt``
@@ -48,12 +56,23 @@ step:
   driver's HOST_PHASES and its peak device memory, and one line compares
   the batched greedy's seconds per audio second with the sequential
   greedy 75 s's;
+- refine: ``model.refine`` of the batched greedy 300-s result on its clip
+  with ``prob_threshold=0.0`` (random weights give every word a
+  probability far below the default 0.5, which ends each span at its
+  baseline probe), with ``parallel`` at its default on the card, which
+  must run interval rounds in two span groups with several spans a
+  round, and with ``parallel=False``; both must launch flash and give the
+  same words; on an f32 copy of the weights (seed 0) also the same word
+  times (in bf16 a round's batch shape changes the rounding, and the
+  differing times are logged); each wall beside the batched greedy's,
+  and one round's probabilities batched, alone and sequential;
 - dq: the same weights quantized to int8 on the card (``dq=True``), with
   packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
   30 s beam_size=5 with no language, 60 s batched greedy in a group
-  of 2 (the encoder's weight-only products at M = 3000), and the 60-s
+  of 2 (the encoder's weight-only products at M = 3000), the 60-s
   ``align_words`` (64 flash, one DTW and the weight-only products at
-  M = 8 x 1500);
+  M = 8 x 1500), a refine of its result and a locate in mode 1, both of
+  which must launch ``woq_matmul``;
 - train: a fresh bf16 model, three steps of ``make_train_step`` (AdamW as
   optax.adamw(1e-5)) at batch 2 windows and 64 tokens, the second with a
   label mask; each step must launch the flash forward and both backward
@@ -69,7 +88,9 @@ kernel is also held against its twin at the batched driver's shapes
 entry over 4 windows x 5 beams, the beam entry at 20 rows, int4 at 2 rows,
 the epilogue at B = 8, vocab_proj at M = 20, woq_matmul at M = 3000 and
 12000, the
-DTW over (8, 252, 1500) in one launch beside 8 launches). A tiny f32
+DTW over (8, 252, 1500) in one launch beside 8 launches), and the
+cross entry with bf16 K/V and the self entry with a bf16 cache of 128
+rows at pos 25, locate's float caches, at the sequential shapes. A tiny f32
 model also takes three train steps on the CPU (twins) and on the card
 (kernels), which must agree, and transcribes alike through both (with
 known heads, quantized, with no heads, with the 'new' aligner and with
@@ -93,7 +114,10 @@ torch.mm of the same product beside each as "yardstick_mm_ms" (not the
 same function), and the DTW's has its time a row of the chain
 ("ms_per_row"); the kernels' numbers at the batched shapes are under "batched" (the
 epilogue's B = 8 under "B=8", vocab_proj's M = 20 under "M=20",
-woq_matmul's M = 3000 and 12000 under "M=3000" and "M=12000"). The line
+woq_matmul's M = 3000 and 12000 under "M=3000" and "M=12000"); the cross
+entry's bf16 K/V under "bf16_kv", the self entry's bf16 cache at
+locate's shape under "bf16_cache" and at (32,1,256,1280) pos 200 under
+"bf16_cache_pos200". The line
 before it gives the run's
 elapsed seconds; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the package
@@ -303,11 +327,15 @@ def kernel_checks(torch, results: dict) -> None:
     # D, self entry: one layer of the (32, 1, 256, 1280) int8 row cache, pos
     # 200; bf16 and f32 caches beside it with PyTorch's fused attention on
     # the same keys (for the f32 cache the same function; for bf16 the query
-    # is rounded to bf16 first, so a yardstick)
-    layers, ctx, pos = 32, 256, 200
-    for what, cdtype, tol in (('int8 cache (32,1,256,1280) pos 200', torch.int8, 1e-4),
-                              ('bf16 cache (32,1,256,1280) pos 200', torch.bfloat16, 1e-4),
-                              ('f32 cache (32,1,256,1280) pos 200', torch.float32, 1e-4)):
+    # is rounded to bf16 first, so a yardstick); and locate's bf16 cache of
+    # confirm_cache_len = 128 rows at pos 25, where most of the kernel's
+    # key-splitting warps hold few keys or none
+    layers, bf16_self = 32, {}
+    for what, cdtype, ctx, pos in (
+            ('int8 cache (32,1,256,1280) pos 200', torch.int8, 256, 200),
+            ('bf16 cache (32,1,256,1280) pos 200', torch.bfloat16, 256, 200),
+            ('f32 cache (32,1,256,1280) pos 200', torch.float32, 256, 200),
+            ('bf16 cache (32,1,128,1280) pos 25', torch.bfloat16, 128, 25)):
         raw = randn(layers, 1, ctx, d)
         raw_v = randn(layers, 1, ctx, d)
         if cdtype == torch.int8:
@@ -323,7 +351,7 @@ def kernel_checks(torch, results: dict) -> None:
         got = self_attn.self_attn_decode(*args)
         ref = self_attn.self_attn_decode_ref(*args)
         torch.cuda.synchronize()
-        err = check('self_attn_decode', got, ref, tol, what)
+        err = check('self_attn_decode', got, ref, 1e-4, what)
         rerun_identical('self_attn_decode', lambda: self_attn.self_attn_decode(*args), got,
                         what)
         ms, ev = both_ms(lambda: self_attn.self_attn_decode(*args), iters=200)
@@ -340,20 +368,32 @@ def kernel_checks(torch, results: dict) -> None:
             extra = f', {label} {lib:.4f} ms'
         log(f'[kernel] self_attn_decode {what}: device kernel {ms:.4f} ms, twin '
             f'{plain:.4f} ms{extra}; events {ev:.4f} ms')
+        # keys 0..pos of one layer's K and V rows (and their scales)
+        n = pos + 1
         if cdtype == torch.int8:
-            # keys 0..pos of one layer's K and V rows and their scales
-            n = pos + 1
             results['self_attn_decode'] = entry(
                 err, ms, plain, 2 * n * (d + 4) + nbytes(q, got), 4 * n * d, 'f32')
+        elif cdtype == torch.bfloat16:
+            # a bf16 cache; at 128 rows, pos 25 the float cache of locate's
+            # confirmation decode (SDPA on a bf16 query is a yardstick, not
+            # the same function)
+            bf16_self[ctx] = entry(err, ms, plain, 2 * n * d * 2 + nbytes(q, got),
+                                   4 * n * d, 'f32')
+    results['self_attn_decode']['bf16_cache'] = bf16_self[128]
+    results['self_attn_decode']['bf16_cache_pos200'] = bf16_self[256]
 
-    # D, cross entry: int8 K/V (32, 1, 2, 1500, 1280), s = 1500
-    for what, quant in (('int8 kv (32,1,2,1500,1280)', True),
-                        ('f32 kv (32,1,2,1500,1280)', False)):
+    # D, cross entry: int8 K/V (32, 1, 2, 1500, 1280), s = 1500; f32, and
+    # bf16 (the float K/V of locate's confirmation decode)
+    for what, kind in (('int8 kv (32,1,2,1500,1280)', 'int8'),
+                       ('f32 kv (32,1,2,1500,1280)', 'f32'),
+                       ('bf16 kv (32,1,2,1500,1280)', 'bf16')):
         kv = randn(layers, 1, 2, 1500, d)
         sc = torch.ones((layers, 1, 2, 1500), device=dev)
-        if quant:
+        if kind == 'int8':
             from stable_ts_tpu_torch.models.whisper.model import quantize_rows
             kv, sc = quantize_rows(kv)
+        elif kind == 'bf16':
+            kv = kv.to(torch.bfloat16)
         q = randn(1, d) * scale
         got = cross_attn.cross_attn_decode(q, kv, sc, 7, 1500, h)
         ref = cross_attn.cross_attn_decode_ref(q, kv[7, :, 0], kv[7, :, 1],
@@ -371,9 +411,13 @@ def kernel_checks(torch, results: dict) -> None:
             iters=200)
         log(f'[kernel] cross_attn_decode {what}: device kernel {ms:.4f} ms, twin '
             f'{plain:.4f} ms; events {ev:.4f} ms')
-        if quant:
+        if kind == 'int8':
             results['cross_attn_decode'] = entry(
                 err, ms, plain, nbytes(kv[7], sc[7], q, got), 4 * 1500 * d, 'bf16')
+        elif kind == 'bf16':
+            bf16_cross = entry(err, ms, plain, nbytes(kv[7], sc[7], q, got),
+                               4 * 1500 * d, 'bf16')
+    results['cross_attn_decode']['bf16_kv'] = bf16_cross
 
     # W: a (1, 226, 1500) attention-like cost (negated, median-filtered
     # z-scores of a softmax), the largest the timing pass hands it
@@ -1176,8 +1220,13 @@ def main() -> int:
 
     # -- forced alignment: align the 20-s transcript, align_words over 60 s -------------
     align_segments = align_words_grid(60.0)
-    for name, n in align_paths(torch, model, audio, sequential[1],
-                               align_segments).items():
+    align_counts, aligned_60 = align_paths(torch, model, audio, sequential[1],
+                                           align_segments)
+    for name, n in align_counts.items():
+        counts[name] = counts.get(name, 0) + n
+
+    # -- locate the start of the 75-s transcript ----------------------------------------
+    for name, n in locate_paths(torch, model, audio, sequential[0]).items():
         counts[name] = counts.get(name, 0) + n
 
     # -- no known heads: the same weights, 6 heads selected per token ------------------
@@ -1231,6 +1280,16 @@ def main() -> int:
         f'{batched_rate:.4f} against the sequential greedy {greedy_75["label"]} '
         f'{seq_rate:.4f} ({seq_rate / batched_rate:.2f}x)')
 
+    # -- refine the batched greedy 300-s result, on the weights and an f32 copy ----------
+    f32_model = WhisperTorch(dims, init_params(dims, seed=0, dtype=torch.float32,
+                                               device='cuda'),
+                             device='cuda', name=MODEL + '-f32', ranks=ranks,
+                             alignment_heads=model.alignment_heads)
+    for name, n in refine_paths(torch, {'bf16': model, 'f32': f32_model}, long_audio,
+                                batched_reqs['batched greedy']).items():
+        counts[name] = counts.get(name, 0) + n
+    del f32_model
+
     # -- the dq path: the same weights quantized on the card, int4 cross K/V -------------
     from stable_ts_tpu_torch.models.whisper.quantization import quantized_bytes
     float_bytes = quantized_bytes(model.params)
@@ -1269,6 +1328,22 @@ def main() -> int:
         lambda: dq_model.align_words(audio[:60 * SR], [dict(s) for s in align_segments],
                                      language='en', verbose=None),
         60.0, exact={'flash_attn': 64, 'dtw_cost': 1}, needed=('woq_matmul',))
+    for name, n in dq_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    _, dq_counts, _ = run_align(
+        torch, 'dq refine', '60 s, the align_words result, prob_threshold=0.0, '
+        'parallel (the default)',
+        lambda: dq_model.refine(audio[:60 * SR], aligned_60, inplace=False,
+                                prob_threshold=0.0, verbose=None),
+        60.0, needed=('flash_attn', 'woq_matmul'))
+    for name, n in dq_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    word = locate_word(greedy_75)
+    _, dq_counts = run_locate(
+        torch, 'dq locate', f'mode 1, tokens {word} in 75 s, probability_threshold=0.0',
+        lambda: dq_model.locate(audio[:75 * SR], word, language='en', verbose=None,
+                                mode=1, probability_threshold=0.0),
+        LOCATE_DECODE + ('woq_matmul',), seq_rate)
     for name, n in dq_counts.items():
         counts[name] = counts.get(name, 0) + n
 
@@ -1552,6 +1627,7 @@ def drive_paths(torch, model, paths, ladder, requests_out=None) -> dict:
                     after = _build.launch_counts()
                     requests_out.append(dict(
                         label=label, wall=wall, duration=duration, text=result.text,
+                        word_tokens=[list(w.tokens) for w in result.all_words()],
                         windows=calls.get('encode', 0),
                         word_timing_s=phases.get('word_timing', 0.0),
                         word_timing_peak_bytes=peak[0],
@@ -1624,7 +1700,7 @@ def run_align(torch, path: str, label: str, fn, duration: float, exact=None,
     return result, launches, dict(wall=wall, duration=duration, peak_bytes=peak)
 
 
-def align_paths(torch, model, audio, greedy_20: dict, segments: list) -> dict:
+def align_paths(torch, model, audio, greedy_20: dict, segments: list):
     """``model.align`` of the 20-s greedy request's own transcript on its
     clip (the product case: arbitrary text under random weights runs the
     failure ladder instead), beside that request's wall; then
@@ -1633,7 +1709,8 @@ def align_paths(torch, model, audio, greedy_20: dict, segments: list) -> dict:
     pass: 64 flash launches, and one DTW launch for every segment) and
     with ``parallel=False`` (64 flash launches and one DTW a segment),
     which must give the same words in the same order. Returns the
-    launches summed over the requests."""
+    launches summed over the requests and the parallel ``align_words``
+    result."""
     counts = {}
 
     def add(launches):
@@ -1676,7 +1753,270 @@ def align_paths(torch, model, audio, greedy_20: dict, segments: list) -> dict:
     diff = max(max(abs(a.start - b.start), abs(a.end - b.end)) for a, b in zip(par, seq))
     log(f'[align_words] parallel against parallel=False: {len(par)} words equal, '
         f'largest start or end difference {diff:.3f} s')
+    return counts, results[None]
+
+
+def refine_paths(torch, models: dict, audio, batched_greedy: dict) -> dict:
+    """``model.refine`` of the batched greedy 300-s result on its clip, on
+    each of ``models`` (the bf16 weights and an f32 copy), with
+    ``parallel`` at its default on the card (lockstep rounds in two span
+    groups, interval mode: the rows rebuilt on the card from each span's
+    audio and its mute intervals) and with ``parallel=False`` (one probe a
+    span at a time, the full softmax downloaded). ``prob_threshold=0.0``:
+    random weights give every word a probability far below the default
+    0.5, which would end every span at its baseline probe, so no round
+    would run. The parallel requests must run interval rounds in two span
+    groups with several spans in a round; both must launch flash and give
+    the same words. In f32 they must give the same word times: a round's
+    batch shape changes bf16 rounding (cuBLAS picks its kernels by shape),
+    and random weights leave many bisection decisions within that rounding
+    of their 3 % thresholds, so in bf16 the differing times are logged, not
+    gated. :func:`probe_spread` logs, for the round with the most spans,
+    how far each span's probabilities move between that round, the span
+    alone and the sequential probe. Returns the launches summed over the
+    requests."""
+    from stable_ts_tpu_torch import alignment
+    from stable_ts_tpu_torch.non_whisper.refinement import MutedSpanProbe
+    counts = {}
+    calls = {}
+    widest = []
+    batch_func, probe_func = (alignment._whisper_refinement_batch_func,
+                              alignment._whisper_refinement_func)
+
+    def batch_spy(*a):
+        fn = batch_func(*a)
+        launch = fn.launch
+
+        def counted(requests, key=0):
+            calls['rounds'] = calls.get('rounds', 0) + 1
+            calls.setdefault('keys', set()).add(key)
+            if isinstance(requests[0][0], MutedSpanProbe):
+                calls['interval rounds'] = calls.get('interval rounds', 0) + 1
+            calls['spans'] = calls.get('spans', 0) + len(requests)
+            if len(requests) > calls.get('most spans a round', 0):
+                calls['most spans a round'] = len(requests)
+                widest[:] = list(requests)
+            return launch(requests, key)
+        fn.launch = counted
+        return fn
+
+    def probe_spy(*a):
+        fn = probe_func(*a)
+
+        def counted(*b):
+            calls['probes'] = calls.get('probes', 0) + 1
+            return fn(*b)
+        return counted
+
+    source = batched_greedy['result']
+    duration = batched_greedy['duration']
+    clip = audio[:round(duration * SR)]
+    rate = batched_greedy['s_per_audio_s']
+    before = [(w.start, w.end) for w in source.all_words()]
+    alignment._whisper_refinement_batch_func = batch_spy
+    alignment._whisper_refinement_func = probe_spy
+    try:
+        for tag, model in models.items():
+            results = {}
+            for parallel in (None, False):
+                calls.clear()
+                kw = {} if parallel is None else dict(parallel=parallel)
+                label = (f'{tag}, {duration:.0f} s, the batched greedy result, '
+                         'prob_threshold=0.0, '
+                         + ('parallel (the default)' if parallel is None
+                            else 'parallel=False'))
+                results[parallel], launches, summary = run_align(
+                    torch, 'refine', label,
+                    lambda: model.refine(clip, source, inplace=False, prob_threshold=0.0,
+                                         verbose=None, **kw),
+                    duration, needed=('flash_attn',))
+                for name, n in launches.items():
+                    counts[name] = counts.get(name, 0) + n
+                moved = sum(b != (w.start, w.end)
+                            for b, w in zip(before, results[parallel].all_words()))
+                log(f'[refine] {label}: {dict(calls)}; {moved} of {len(before)} word '
+                    f'times moved; seconds per audio second '
+                    f'{summary["wall"] / duration:.4f} against the batched greedy '
+                    f'transcribe of the clip (bf16) {rate:.4f}')
+                if parallel is None:
+                    if (calls.get('keys') != {0, 1}
+                            or calls.get('interval rounds') != calls['rounds']
+                            or calls['most spans a round'] < 2):
+                        raise AssertionError(f'refine: expected interval rounds in two '
+                                             f'span groups, several spans a round, got '
+                                             f'{dict(calls)}')
+                    probe_spread(torch, model, batch_func, probe_func, source.language,
+                                 widest, tag)
+            par, seq = results[None].all_words(), results[False].all_words()
+            if [w.word for w in par] != [w.word for w in seq]:
+                raise AssertionError(f'refine {tag}: parallel and sequential words differ')
+            diff = max(max(abs(a.start - b.start), abs(a.end - b.end))
+                       for a, b in zip(par, seq))
+            n_diff = sum((a.start, a.end) != (b.start, b.end) for a, b in zip(par, seq))
+            log(f'[refine] {tag} parallel against parallel=False: {len(par)} words equal, '
+                f'{n_diff} word times differ, largest start or end difference {diff:.3f} s')
+            if tag == 'f32' and n_diff:
+                raise AssertionError(f'refine f32: {n_diff} word times differ between '
+                                     f'parallel and parallel=False')
+    finally:
+        alignment._whisper_refinement_batch_func = batch_func
+        alignment._whisper_refinement_func = probe_func
     return counts
+
+
+def probe_spread(torch, model, batch_func, probe_func, language, requests, tag) -> None:
+    """One refine round's ``requests`` (MutedSpanProbe, tokens) three ways:
+    batched as the round ran, each span alone through the batch function,
+    and each span's muted rows through the sequential probe (its full
+    softmax, read at the realized tokens). Logs the largest relative
+    difference of the realized tokens' probabilities between them and how
+    many of their ranks differ."""
+    import numpy as np
+    tokenizer = model.get_tokenizer(language=language, task='transcribe')
+    fn = batch_func(model, tokenizer)
+    probe = probe_func(model, tokenizer)
+    full = fn.collect(fn.launch(requests, key=0))
+    worst = {'alone': 0.0, 'sequential': 0.0}
+    ranks_differ = 0
+    for i, ((p, tokens), (probs, ranks)) in enumerate(zip(requests, full)):
+        alone, alone_ranks = fn.collect(fn.launch([(p, tokens)], key=1 + i))[0]
+        rows = np.repeat(p.clean[None], 2, axis=0)
+        for r, a, b in zip(p.rows, p.zero_lo, p.zero_hi):
+            rows[r, a:b] = 0
+        soft = probe(rows, tokens)
+        seq = soft[:, np.arange(len(tokens)), np.asarray(tokens)]
+        for name, other in (('alone', alone), ('sequential', seq)):
+            worst[name] = max(worst[name], float(np.max(np.abs(probs - other) / other)))
+        ranks_differ += int(np.sum(ranks != alone_ranks))
+    log(f'[refine] {tag} round of {len(requests)} spans: realized-token probabilities '
+        f'against each span alone, largest relative difference {worst["alone"]:.3e}; '
+        f'against the sequential probe {worst["sequential"]:.3e}; ranks differing from '
+        f'the span alone: {ranks_differ}')
+
+
+def run_locate(torch, path: str, label: str, fn, needed, greedy_rate: float,
+               expect_match: bool = True):
+    """One locate request (``fn``) on the 75-s clip with the launch counts
+    reset before it and read after it. Logs its wall and seconds per audio
+    second beside the greedy request's (``greedy_rate``), its matches,
+    launches and peak device memory over what was resident; fails unless it
+    found a match (none, with ``expect_match=False``) and launched every
+    kernel of ``needed``. Returns (matches, launches)."""
+    from stable_ts_tpu_torch import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    found = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - resident
+    log(f'[{path}] request {label}: wall {wall:.3f} s ({wall / 75.0:.4f} s per audio '
+        f'second; greedy transcribe of the clip {greedy_rate:.4f}, '
+        f'{greedy_rate * 75.0 / wall:.2f}x), {len(found)} matches '
+        f'{describe_matches(found)}; launches {launches}; peak +{peak / 1e9:.3f} GB '
+        f'over the resident {resident / 1e9:.3f} GB')
+    if bool(found) != expect_match:
+        raise AssertionError(f'{path} {label}: {len(found)} matches, expected '
+                             + ('some' if expect_match else 'none'))
+    for name in needed:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f'kernel {name} was not launched on the {path} '
+                                 f'{label} path')
+    return found, launches
+
+
+LOCATE_DECODE = ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'vocab_proj')
+
+
+def locate_word(greedy_75: dict) -> list:
+    """The target of locate: the first 4 token ids of the greedy 75-s
+    transcript's token stream (its words' tokens in order), so that the
+    confirmation decode forces several tokens. A confirmation decode ends
+    after ``max_token_per_seg`` = 20 tokens."""
+    stream = [t for tokens in greedy_75['word_tokens'] for t in tokens]
+    if len(stream) < 4:
+        raise AssertionError(f'locate: the 75-s greedy request transcribed '
+                             f'{len(stream)} tokens')
+    return stream[:4]
+
+
+def locate_paths(torch, model, audio, greedy_75: dict) -> dict:
+    """``model.locate`` of the start of the greedy 75-s transcript
+    (:func:`locate_word`) in its clip: mode 2 (the end estimate alone, the
+    default threshold), then modes 1 and 0 with ``probability_threshold=0.0``,
+    so that on random weights the confirmation decode forces the 4 target
+    tokens and mode 0's timing pass runs; mode 1 must launch the self and
+    cross decode entries and ``vocab_proj``, mode 0 also the DTW. Then a
+    rollback request: mode 1 on the first 3 of those tokens and a
+    suppressed one, at ``probability_threshold=1e-30``. Random weights
+    give every unsuppressed token a probability far above that and a
+    suppressed one exactly 0, so the decode forces the 3 tokens, rejects
+    the fourth, puts its own choices back and re-prefills, and no chunk
+    matches: it must make more prefills than confirmation decodes. Returns
+    the launches summed over the requests."""
+    import stable_ts_tpu_torch.models.whisper.model as model_mod
+    from stable_ts_tpu_torch.models.whisper.decoding import (DecodingOptions,
+                                                             build_suppress_list)
+    counts = {}
+    word = locate_word(greedy_75)
+    tokenizer = model.get_tokenizer(language='en', task='transcribe')
+    suppressed = min(i for i in build_suppress_list(tokenizer, DecodingOptions(
+        language='en', suppress_tokens='-1', without_timestamps=True))
+        if i < tokenizer.eot)
+    rollback = word[:3] + [suppressed]
+    clip = audio[:75 * SR]
+    greedy_rate = greedy_75['wall'] / greedy_75['duration']
+    calls = {}
+
+    def counted(name, fn):
+        def inner(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return inner
+
+    prefill, cross_kv = model_mod.decoder_prefill, model_mod.precompute_cross_kv_t
+    model_mod.decoder_prefill = counted('prefills', prefill)
+    model_mod.precompute_cross_kv_t = counted('confirmations', cross_kv)
+    try:
+        for label, target, kw, needed, expect in (
+                ('mode 2', word, dict(mode=2), ('flash_attn',), True),
+                ('mode 1', word, dict(mode=1, probability_threshold=0.0),
+                 LOCATE_DECODE, True),
+                ('mode 0', word, dict(mode=0, probability_threshold=0.0),
+                 LOCATE_DECODE + ('dtw_cost',), True),
+                ('mode 1 rollback', rollback, dict(mode=1, probability_threshold=1e-30),
+                 LOCATE_DECODE, False)):
+            calls.clear()
+            _, launches = run_locate(
+                torch, 'locate', f'{label}, tokens {target} in 75 s',
+                lambda: model.locate(clip, target, language='en', verbose=None, **kw),
+                needed, greedy_rate, expect_match=expect)
+            log(f'[locate] {label}: {dict(calls)}')
+            for name, n in launches.items():
+                counts[name] = counts.get(name, 0) + n
+    finally:
+        model_mod.decoder_prefill, model_mod.precompute_cross_kv_t = prefill, cross_kv
+    if not calls.get('prefills', 0) > calls.get('confirmations', 0) > 0:
+        raise AssertionError(f'locate rollback: {dict(calls)}, expected more prefills '
+                             f'than confirmation decodes')
+    return counts
+
+
+def describe_matches(found) -> list:
+    """A locate result's matches, short: the end of each (modes 2 and 1) or
+    its words' start and end (mode 0)."""
+    out = []
+    for m in found:
+        if isinstance(m, dict):
+            out.append(dict(end=m.get('target_end', m.get('end')),
+                            tokens=len(m.get('tokens', [])) or sum(
+                                len(w['tokens']) for w in m.get('duration_window_word', []))))
+        else:
+            out.append([(w.word, w.start, w.end) for w in m.words])
+    return out
 
 
 def batched_paths(torch, requests, summaries: dict) -> dict:
@@ -1767,7 +2107,8 @@ def batched_paths(torch, requests, summaries: dict) -> dict:
             hp = ', '.join(f'{k} {v:.3f} s' for k, v in batched_mod.HOST_PHASES.items())
             summaries[name] = dict(wall=wall, duration=duration,
                                    s_per_audio_s=wall / duration, groups=groups,
-                                   steps=steps, launches=launches, peak=peak)
+                                   steps=steps, launches=launches, peak=peak,
+                                   result=result)
             log(f'[{name}] {duration:.0f} s, {options}: wall {wall:.3f} s ({wall / duration:.4f} '
                 f's per audio second), language {result.language}, {len(result.segments)} '
                 f'segments, {n_words} words, srt {len(srt)} bytes; {groups} groups of '

@@ -46,6 +46,8 @@ _LAZY = {
     'from_jax': 'stable_ts_tpu_torch.loaders',
     'align': 'stable_ts_tpu_torch.alignment',
     'align_words': 'stable_ts_tpu_torch.alignment',
+    'refine': 'stable_ts_tpu_torch.alignment',
+    'locate': 'stable_ts_tpu_torch.alignment',
     'AllOptions': 'stable_ts_tpu_torch.options',
     'transcribe_any': 'stable_ts_tpu_torch.non_whisper',
     'Aligner': 'stable_ts_tpu_torch.non_whisper.alignment',

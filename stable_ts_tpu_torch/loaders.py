@@ -175,14 +175,12 @@ class WhisperTorch:
         return align_words(self, audio, result, **kwargs)
 
     def refine(self, audio, result, **kwargs):
-        """Still to be ported (ROADMAP.md, item 5b)."""
-        raise NotImplementedError('refine is still to be ported to '
-                                  'stable_ts_tpu_torch (ROADMAP.md)')
+        from .alignment import refine
+        return refine(self, audio, result, **kwargs)
 
     def locate(self, audio, text, **kwargs):
-        """Still to be ported (ROADMAP.md, item 5b)."""
-        raise NotImplementedError('locate is still to be ported to '
-                                  'stable_ts_tpu_torch (ROADMAP.md)')
+        from .alignment import locate
+        return locate(self, audio, text, **kwargs)
 
 
 def load_test_model(seed: int = 0, device='cuda', **kwargs) -> WhisperTorch:

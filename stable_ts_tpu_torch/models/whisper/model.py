@@ -9,8 +9,9 @@ their JAX counterparts so a reader finds each one's twin:
   with flash cross-attention and the selected heads' raw QK recomputed in
   f32 and stored as bf16 (model.py:377-383, 601-607);
 - :func:`decoder_prefill` and :func:`decoder_step`: the incremental
-  decoder over an int8 row cache that the step updates IN PLACE (JAX
-  threads it through the scan carry instead), with the decode-attention
+  decoder over an int8 row cache (or, for ``locate``'s confirmation
+  decode, a float one) that the step updates IN PLACE (JAX threads it
+  through the scan carry instead), with the decode-attention
   kernels (``ops/self_attn.py``, ``ops/cross_attn.py``); the step also
   serves best_of groups and beams (``q_per_kv``, ``anc``) and can return
   the hidden state for the logit epilogue (``ops/logit_epilogue.py``);
@@ -230,12 +231,13 @@ def _causal_mask(n_tok: int, device) -> torch.Tensor:
 
 def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
                   capture_qk: bool = False,
-                  capture_index: Optional[np.ndarray] = None):
+                  capture_index=None):
     """Teacher-forced decoder pass.
 
     tokens (B, T) int64; xa (B, S, d). Returns (logits (B, T, V) f32,
     cross_qk (L, B, slots, T, S) bf16 or None). ``capture_index``
-    (L, slots) picks the heads whose raw QK is captured per layer (see
+    (L, slots), an array or a tensor on the tokens' device, picks the heads
+    whose raw QK is captured per layer (see
     timing.build_head_capture_table; padding slots repeat head 0); None
     captures every head. The captured QK is recomputed from the selected
     heads only, q and k each scaled by d_head**-0.25, in f32."""
@@ -248,7 +250,7 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
         # waits for the stream it is queued on
         heads = (torch.arange(n_head, device=tokens.device)[None].expand(
                      len(decoder.blocks), n_head) if capture_index is None
-                 else torch.tensor(np.asarray(capture_index), dtype=torch.long,
+                 else torch.as_tensor(capture_index, dtype=torch.long,
                                       device=tokens.device))
     x = _embed(decoder, tokens)
     causal = _causal_mask(n_tok, x.device)
@@ -292,23 +294,31 @@ def quantize_rows(t: torch.Tensor, bits: int = 8):
 
 
 def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,
-                    xa: torch.Tensor, n_text_ctx: int):
-    """Teacher-forced pass over the initial tokens that also fills the int8
-    row cache for positions [0, T). Returns (logits (B, T, V) f32, cache
-    {'k', 'v': int8 (L, B, n_text_ctx, d); 'ks', 'vs': f32 (L, B, n_text_ctx)});
-    unwritten rows are zero with scale 1 (model.py:839-850)."""
+                    xa: torch.Tensor, n_text_ctx: int, int8_cache: bool = True):
+    """Teacher-forced pass over the initial tokens that also fills the row
+    cache for positions [0, T). Returns (logits (B, T, V) f32, cache).
+    ``int8_cache`` (the decode loops' layout): {'k', 'v': int8 (L, B,
+    n_text_ctx, d); 'ks', 'vs': f32 (L, B, n_text_ctx)}, unwritten rows
+    zero with scale 1 (model.py:839-850). Otherwise {'k', 'v'} in the
+    activations' dtype, unwritten rows zero: the cache JAX's prefill keeps
+    by default, which ``locate`` decodes over (model.py:893-905)."""
     b, n_tok = tokens.shape
     n_head = decoder.n_head
     d = decoder.token_emb.shape[1]
     n_layers = len(decoder.blocks)
     x = _embed(decoder, tokens)
     dev = x.device
-    cache = {
-        'k': torch.zeros((n_layers, b, n_text_ctx, d), dtype=torch.int8, device=dev),
-        'v': torch.zeros((n_layers, b, n_text_ctx, d), dtype=torch.int8, device=dev),
-        'ks': torch.ones((n_layers, b, n_text_ctx), dtype=torch.float32, device=dev),
-        'vs': torch.ones((n_layers, b, n_text_ctx), dtype=torch.float32, device=dev),
-    }
+    shape = (n_layers, b, n_text_ctx, d)
+    if int8_cache:
+        cache = {
+            'k': torch.zeros(shape, dtype=torch.int8, device=dev),
+            'v': torch.zeros(shape, dtype=torch.int8, device=dev),
+            'ks': torch.ones(shape[:3], dtype=torch.float32, device=dev),
+            'vs': torch.ones(shape[:3], dtype=torch.float32, device=dev),
+        }
+    else:
+        cache = {'k': torch.zeros(shape, dtype=x.dtype, device=dev),
+                 'v': torch.zeros(shape, dtype=x.dtype, device=dev)}
     causal = _causal_mask(n_tok, dev)
     for layer, blk in enumerate(decoder.blocks):
         h = blk.attn_ln(x)
@@ -321,12 +331,21 @@ def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,
                                      ca.v(xa), n_head)
         x = x + ca.out(cross_out)
         x = x + blk.mlp(blk.mlp_ln(x))
-        for name, t in (('k', k), ('v', v)):
-            qt, sc = quantize_rows(t)
-            cache[name][layer, :, :n_tok] = qt
-            cache[name + 's'][layer, :, :n_tok] = sc
+        _write_rows(cache, layer, slice(0, n_tok), k, v)
     x = decoder.ln(x)
     return decoder.vocab_logits(x), cache
+
+
+def _write_rows(cache: dict, layer: int, at, k: torch.Tensor, v: torch.Tensor):
+    """Store K/V rows at cache positions ``at`` of ``layer``: quantized to
+    int8 with their scales when the cache has them, else as they are."""
+    for name, t in (('k', k), ('v', v)):
+        if 'ks' in cache:
+            qt, sc = quantize_rows(t)
+            cache[name][layer, :, at] = qt
+            cache[name + 's'][layer, :, at] = sc
+        else:
+            cache[name][layer, :, at] = t
 
 
 def fuse_self_qkv(decoder: TextDecoder):
@@ -386,7 +405,8 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
                  q_per_kv: int = 1, anc: Optional[torch.Tensor] = None,
                  return_hidden: bool = False) -> torch.Tensor:
     """One decode step at position ``pos``. tokens (B, 1). Writes this
-    position's int8 K/V rows into ``cache`` in place, then attends keys
+    position's K/V rows into ``cache`` in place (int8 when the cache holds
+    scales, as :func:`decoder_prefill` made it), then attends keys
     j <= pos with the self-decode kernel and the window's cross K/V with
     the cross-decode kernel. Returns logits (B, V) f32, or with
     ``return_hidden`` the post-LN state (B, d) that the logit epilogue
@@ -406,13 +426,11 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
     for layer, blk in enumerate(decoder.blocks):
         qkv = fused_qkv[layer](blk.attn_ln(x))
         q_proj, new_k, new_v = qkv[:, 0].split(d, dim=-1)
-        for name, t in (('k', new_k), ('v', new_v)):
-            qt, sc = quantize_rows(t)
-            cache[name][layer, :, pos] = qt
-            cache[name + 's'][layer, :, pos] = sc
+        _write_rows(cache, layer, pos, new_k, new_v)
+        ks, vs = ((cache['ks'][layer], cache['vs'][layer]) if 'ks' in cache
+                  else (None, None))
         ctx = self_attn_decode(q_proj.float() * q_scale, cache['k'][layer],
-                               cache['v'][layer], cache['ks'][layer],
-                               cache['vs'][layer], pos, n_head, anc=anc,
+                               cache['v'][layer], ks, vs, pos, n_head, anc=anc,
                                q_per_kv=q_per_kv)
         x = x + blk.attn.out(ctx[:, None].to(x.dtype))
         ca = blk.cross_attn

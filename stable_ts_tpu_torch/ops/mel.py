@@ -79,13 +79,24 @@ def _as_audio(audio, device) -> torch.Tensor:
     return audio.float()
 
 
+@lru_cache(maxsize=8)
+def _device_matrices(n_mels: int, device: torch.device):
+    """The windowed DFT basis and the filterbank on ``device``, uploaded
+    once: an upload from pageable host memory waits for the work already
+    queued on the card, and a refine round or a locate estimate is queued
+    behind the previous one without waiting for it. Made outside inference
+    mode, so that they serve any caller."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(windowed_dft_basis(N_FFT)).to(device),
+                torch.from_numpy(mel_filterbank(n_mels)).to(device))
+
+
 def _log_mel(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
     pad = N_FFT // 2
     padded = torch.nn.functional.pad(audio[:, None], (pad, pad),
                                      mode='reflect')[:, 0]
     frames = padded.unfold(-1, N_FFT, HOP_LENGTH)      # (B, n_frames, N_FFT)
-    basis = torch.from_numpy(windowed_dft_basis(N_FFT)).to(audio.device)
-    filters = torch.from_numpy(mel_filterbank(n_mels)).to(audio.device)
+    basis, filters = _device_matrices(n_mels, audio.device)
     spec = frames @ basis
     k_bins = N_FFT // 2 + 1
     power = (spec[..., :k_bins] ** 2 + spec[..., k_bins:] ** 2)[:, :-1]

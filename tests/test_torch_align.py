@@ -264,22 +264,14 @@ def test_align_words_parallel_defaults_to_the_card(known, monkeypatch):
     assert not built
 
 
-def test_refine_and_locate_are_still_to_port(known):
-    port_model = known[1]
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        port_model.refine(_noise(3), None)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        port_model.locate(_noise(3), ' hello')
-
-
 def test_faster_whisper_models_are_refused():
-    from stable_ts_tpu_torch.alignment import align, align_words
+    from stable_ts_tpu_torch.alignment import align, align_words, locate, refine
 
     class FakeFasterWhisper:
         model = object()
         feature_extractor = object()
 
-    for entry in (align, align_words):
+    for entry in (align, align_words, refine, locate):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             entry(FakeFasterWhisper(), _noise(1), ' hello', language='en')
 
@@ -288,11 +280,14 @@ def test_package_exports():
     import stable_ts_tpu
     import stable_ts_tpu_torch
     from stable_ts_tpu_torch import alignment, non_whisper, options
-    for name in ('align', 'align_words', 'AllOptions', 'transcribe_any',
-                 'Aligner', 'Refiner'):
+    for name in ('align', 'align_words', 'refine', 'locate', 'AllOptions',
+                 'transcribe_any', 'Aligner', 'Refiner'):
         assert name in stable_ts_tpu_torch.__all__
     assert stable_ts_tpu_torch.align is alignment.align
     assert stable_ts_tpu_torch.align_words is alignment.align_words
+    assert stable_ts_tpu_torch.refine is alignment.refine
+    assert stable_ts_tpu_torch.locate is alignment.locate
+    assert alignment.__all__ == ['align', 'align_words', 'refine', 'locate']
     assert stable_ts_tpu_torch.AllOptions is options.AllOptions
     assert stable_ts_tpu_torch.transcribe_any is non_whisper.transcribe_any
     assert stable_ts_tpu_torch.Aligner is non_whisper.Aligner

@@ -191,6 +191,12 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
             assert model.align_words(audio, [dict(s) for s in segs],
                                      language='en', verbose=None,
                                      parallel=parallel).has_words
+            assert model.refine(audio, aligned, inplace=False, verbose=None,
+                                parallel=parallel).has_words
+        for mode in (2, 1, 0):
+            assert isinstance(model.locate(audio, ' hello', language='en',
+                                           mode=mode, verbose=None,
+                                           probability_threshold=0.0), list)
         assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
         assert 'optax' not in sys.modules
         old = sorted(m for m in sys.modules
