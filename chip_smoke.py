@@ -44,6 +44,19 @@ step:
   flash launches a window; then one window's encoder and 'new' aligner
   pass under ``profiling.profile_trace``, whose Chrome trace must name the
   flash and DTW kernels;
+- cli: on that ``large-v3.pt``, ``python -m stable_ts_tpu_torch`` as a
+  subprocess on the 20-s clip as a 16-bit WAV (``--dtype bfloat16
+  --language en``, all six formats, the default fallback ladder): exit 0,
+  six non-empty files, SRT bytes equal to the same argv run in this
+  process (walls logged: the subprocess's start-up, imports, build check
+  and load beside the in-process request's); then, in this process on one
+  model kept by ``_run_once``'s cache, ``transcribe_batched`` with
+  ``batch_size=8`` on a 120-s WAV, ``--align`` of the 20-s TXT output,
+  ``--align_words`` of the batched JSON, ``--refine`` of that alignment,
+  ``--locate`` of the first 4 tokens of the 20-s transcript and ``-dq``
+  greedy (a second load), each with its launch counts reset and read and
+  the kernels of its entry point required; a JSON -> SRT request must
+  launch nothing and load no model;
 - batched: ``WhisperTorch.transcribe_batched`` on 300 s of the same
   signal: greedy over 10 windows in groups of 8 (a full group and a group
   of 2 padded to 8), which must launch 64 flash kernels (32 encoder and 32
@@ -72,7 +85,10 @@ step:
   of 2 (the encoder's weight-only products at M = 3000), the 60-s
   ``align_words`` (64 flash, one DTW and the weight-only products at
   M = 8 x 1500), a refine of its result and a locate in mode 1, both of
-  which must launch ``woq_matmul``;
+  which must launch ``woq_matmul``; then the greedy 30-s request again
+  with STABLE_TS_TPU_WOQ=dyn (int8 activations x int8 weights through
+  ``torch._int_mm``), which must launch ``woq_matmul`` 0 times, its ms a
+  step logged beside the default's;
 - train: a fresh bf16 model, three steps of ``make_train_step`` (AdamW as
   optax.adamw(1e-5)) at batch 2 windows and 64 tokens, the second with a
   label mask; each step must launch the flash forward and both backward
@@ -90,7 +106,13 @@ the epilogue at B = 8, vocab_proj at M = 20, woq_matmul at M = 3000 and
 12000, the
 DTW over (8, 252, 1500) in one launch beside 8 launches), and the
 cross entry with bf16 K/V and the self entry with a bf16 cache of 128
-rows at pos 25, locate's float caches, at the sequential shapes. A tiny f32
+rows at pos 25, locate's float caches, at the sequential shapes. The dyn
+recipe (a library product, not a kernel of the port, so not in the
+kernels line) is held at large-v3's linear shapes, M = 1, 5, 20, 1500 and
+3000 over (K, N) = (1280, 5120), (5120, 1280) and (1280, 1280): its int32
+sums equal the CPU's bit for bit, its output the CPU's within 1e-6, its
+reruns bit-identical, its device time logged beside woq_matmul's and
+F.linear's on the weight widened to bf16. A tiny f32
 model also takes three train steps on the CPU (twins) and on the card
 (kernels), which must agree, and transcribes alike through both (with
 known heads, quantized, with no heads, with the 'new' aligner and with
@@ -139,9 +161,10 @@ SR = 16000
 MODEL = 'large-v3'
 HEADS_TINY = [(0, 1), (1, 0), (1, 1)]
 # NVIDIA's data sheet for one H100 SXM at 700 W: memory rate (bytes/s) and
-# dense peaks (operations/s) by operand type (f32: the CUDA cores)
+# dense peaks (operations/s) by operand type (f32: the CUDA cores; int8:
+# the tensor cores' integer rate)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {'bf16': 989e12, 'f32': 67e12}
+PEAK_OPS_PER_S = {'bf16': 989e12, 'f32': 67e12, 'int8': 1979e12}
 
 
 def log(msg: str) -> None:
@@ -1169,6 +1192,7 @@ def main() -> int:
 
     results = {}
     kernel_checks(torch, results)
+    dyn_checks(torch)
     tiny_parity(torch)
     tiny_train_parity(torch)
 
@@ -1243,7 +1267,8 @@ def main() -> int:
     del no_heads
 
     # -- a checkpoint written and loaded; the 'new' aligner; an extra model ----------------
-    for name, n in checkpoint_paths(torch, model, ranks, audio, ladder).items():
+    for name, n in checkpoint_paths(torch, model, ranks, audio, ladder,
+                                    sequential[1]).items():
         counts[name] = counts.get(name, 0) + n
 
     # -- the batched driver: window groups through transcribe_batched -----------------
@@ -1314,7 +1339,10 @@ def main() -> int:
           'logit_epilogue', 'self_attn_decode_beam', 'cross_attn_decode_group_int4',
           'vocab_proj', 'dtw_cost')),
     ]
-    for name, n in drive_paths(torch, dq_model, dq_paths, ladder).items():
+    dq_requests = []
+    for name, n in drive_paths(torch, dq_model, dq_paths, ladder, dq_requests).items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in dyn_request(torch, dq_model, beam_clip, ladder, dq_requests[0]).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in batched_paths(torch, [
             ('batched dq', dq_model, long_audio[210 * SR:270 * SR],
@@ -1416,7 +1444,7 @@ def write_tiktoken(path: str, ranks: dict) -> None:
             f.write(f'{base64.b64encode(token).decode()} {rank}\n')
 
 
-def checkpoint_paths(torch, model, ranks, audio, ladder) -> dict:
+def checkpoint_paths(torch, model, ranks, audio, ladder, greedy_20: dict) -> dict:
     """Write ``model``'s weights as an OpenAI ``large-v3.pt`` beside a
     ``multilingual.tiktoken`` of ``ranks``; load it back with ``load_model``
     (bf16, on the card) and fail unless every parameter, the heads the file
@@ -1427,8 +1455,9 @@ def checkpoint_paths(torch, model, ranks, audio, ladder) -> dict:
     large-v3 of seed 1 as the extra model, which must add its 32 encoder
     and 32 capture-pass flash launches a window); then one window's
     encoder and 'new' aligner pass under ``profile_trace``, whose Chrome
-    trace must name the flash and DTW kernels. Returns the paths' kernel
-    launches."""
+    trace must name the flash and DTW kernels; then the command line on
+    the written files (:func:`cli_paths`, with ``greedy_20``'s tokens as
+    the target of ``--locate``). Returns the paths' kernel launches."""
     import tempfile
     from stable_ts_tpu_torch import load_model
     from stable_ts_tpu_torch.constants import N_FRAMES, N_SAMPLES
@@ -1543,9 +1572,290 @@ def checkpoint_paths(torch, model, ranks, audio, ladder) -> dict:
             f'{len(events)} events, {len(kernels)} kernel names; {found}')
         if not all(found.values()):
             raise AssertionError(f'the trace names no flash or DTW kernel: {found}')
-    del loaded, extra
+        del loaded, extra, feats
+        gc.collect()
+        torch.cuda.empty_cache()
+        add(cli_paths(torch, path, audio, tmp, greedy_20))
+    return counts
+
+
+def write_wav(path: str, clip) -> str:
+    """``clip`` (f32 in [-1, 1] at 16 kHz) as a 16-bit mono WAV."""
+    import wave
+    import numpy as np
+    with wave.open(path, 'wb') as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes((np.clip(clip, -1.0, 1.0) * 32767).astype('<i2').tobytes())
+    return path
+
+
+CLI_FORMATS = ('srt', 'vtt', 'ass', 'tsv', 'txt', 'json')
+CLI_GREEDY = ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
+              'dtw_cost')
+
+
+STARTUP_PROBE = '''
+import json, time
+t0 = time.perf_counter()
+import torch
+import stable_ts_tpu_torch.cli, stable_ts_tpu_torch.loaders
+t1 = time.perf_counter()
+torch.zeros(1, device='cuda')
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+from stable_ts_tpu_torch import _build
+_build.lib()
+t3 = time.perf_counter()
+print(json.dumps(dict(imports=t1 - t0, cuda_context=t2 - t1, build_check=t3 - t2)))
+'''
+
+
+def cli_paths(torch, pt: str, audio, tmp: str, greedy_20: dict) -> dict:
+    """The command line on the ``large-v3.pt`` and ``multilingual.tiktoken``
+    that :func:`checkpoint_paths` wrote. First ``python -m
+    stable_ts_tpu_torch`` as a subprocess on the 20-s clip (the greedy 20-s
+    request's) written as a 16-bit WAV, bf16, all six formats: it must exit
+    0 and write six non-empty files, and its SRT bytes must equal those of
+    the same argv in this process; a second subprocess times the start-up
+    alone (the imports, the CUDA context, the kernel library's build
+    check). Then, in this process on the one model
+    that ``_run_once``'s cache keeps loaded: ``transcribe_batched`` with
+    ``batch_size=8`` on a 120-s WAV, ``--align`` of the 20-s TXT output,
+    ``--align_words`` of the batched JSON, ``--refine`` of that alignment
+    (``prob_threshold=0.0``), ``--locate`` of the first 4 tokens of the
+    greedy 20-s transcript (``greedy_20``, :func:`locate_word`; mode 0,
+    ``probability_threshold=0.0``) and ``-dq``
+    greedy on the 20-s WAV (a second load). The launch counts are reset
+    before each request and read after it; each must launch the kernels of
+    the entry point it calls. Last, a JSON -> SRT request must launch
+    nothing and call no ``load_model``. Returns the launches summed over
+    the in-process requests."""
+    import contextlib
+    import io
+    from stable_ts_tpu_torch import _build, loaders
+    from stable_ts_tpu_torch.cli import _run_once, build_parser
+    parser = build_parser()
+    wav20 = write_wav(os.path.join(tmp, 'clip20.wav'), audio[75 * SR:95 * SR])
+    wav120 = write_wav(os.path.join(tmp, 'clip120.wav'), audio[:120 * SR])
+    model_args = ['--model', pt, '--dtype', 'bfloat16', '--language', 'en']
+    argv = [wav20, *model_args, '--output_format', ','.join(CLI_FORMATS)]
+    out = {name: os.path.join(tmp, 'cli_' + name) for name in ('sub', 'main', 'extra')}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', 'stable_ts_tpu_torch', *argv,
+                           '--output_dir', out['sub'], '-y'],
+                          cwd=HERE, capture_output=True, text=True, timeout=900)
+    sub_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f'python -m stable_ts_tpu_torch exited {proc.returncode}: '
+                             f'{proc.stderr[-2000:]}')
+    sizes = {fmt: os.path.getsize(os.path.join(out['sub'], f'clip20.{fmt}'))
+             for fmt in CLI_FORMATS}
+    if not all(sizes.values()):
+        raise AssertionError(f'the subprocess wrote an empty file: {sizes}')
+    t0 = time.perf_counter()
+    probe = subprocess.run([sys.executable, '-c', STARTUP_PROBE], cwd=HERE,
+                           capture_output=True, text=True, timeout=300, check=True)
+    startup = dict(json.loads(probe.stdout.strip().splitlines()[-1]),
+                   process=time.perf_counter() - t0)
+
+    counts, loads, cache = {}, [], {}
+    load_model = loaders.load_model
+
+    def timed_load(**kw):
+        t = time.perf_counter()
+        model = load_model(**kw)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t)
+        return model
+
+    def request(label, args, needed=(), quiet=True):
+        """One in-process request; returns (wall, launches, its stdout)."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        printed = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(io.StringIO()):
+            _run_once(parser.parse_args(args + (['-v', '0'] if quiet else [])), cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = _build.launch_counts()
+        log(f'[cli] {label}: wall {wall:.3f} s; launches {launches}')
+        missing = [k for k in needed if launches.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f'cli {label}: no {missing} launched')
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+        return wall, launches, printed.getvalue()
+
+    loaders.load_model = timed_load
+    try:
+        main_wall, _, _ = request('the subprocess argv, 20 s (the fallback ladder)',
+                                  argv + ['--output_dir', out['main'], '-y'], CLI_GREEDY,
+                                  quiet=False)
+        log(f'[cli] python -m stable_ts_tpu_torch (20 s, bf16, six formats) as a '
+            f'subprocess: wall {sub_wall:.3f} s (start-up, imports, build check, load, '
+            f'request); the same argv in this process {main_wall:.3f} s, of which '
+            f'load_model {loads[0]:.3f} s; a start-up alone in a subprocess '
+            f'{startup["process"]:.3f} s: imports {startup["imports"]:.3f} s, CUDA '
+            f'context {startup["cuda_context"]:.3f} s, build check '
+            f'{startup["build_check"]:.3f} s; files {sizes}')
+        for fmt in ('srt',):
+            with open(os.path.join(out['sub'], f'clip20.{fmt}'), 'rb') as f:
+                sub_bytes = f.read()
+            with open(os.path.join(out['main'], f'clip20.{fmt}'), 'rb') as f:
+                main_bytes = f.read()
+            if sub_bytes != main_bytes:
+                raise AssertionError(f'cli: the subprocess and the in-process {fmt} differ')
+        log(f'[cli] subprocess and in-process SRT bytes equal ({len(sub_bytes)} bytes)')
+
+        greedy = ['--temperature_increment_on_fallback', 'None', '-y']
+        batched_dir = os.path.join(out['extra'], 'batched')
+        request('transcribe_batched, batch_size=8, 120 s, greedy',
+                [wav120, *model_args, '--transcribe_method', 'transcribe_batched',
+                 '--batch_size', '8', '-f', 'json,srt', '-d', batched_dir, *greedy],
+                CLI_GREEDY)
+        batched_json = os.path.join(batched_dir, 'clip120.json')
+        request('--align of the 20-s TXT output',
+                [wav20, *model_args, '--align', os.path.join(out['main'], 'clip20.txt'),
+                 '-f', 'srt', '-d', os.path.join(out['extra'], 'align'), '-y'],
+                ('flash_attn', 'dtw_cost'))
+        request('--align_words of the batched JSON, 120 s',
+                [wav120, *model_args, '--align_words', batched_json, '-f', 'srt',
+                 '-d', os.path.join(out['extra'], 'align_words'), '-y'],
+                ('flash_attn', 'dtw_cost'))
+        request('--align_words of the batched JSON, then --refine (prob_threshold=0.0)',
+                [wav120, *model_args, '--align_words', batched_json, '--refine',
+                 '--refine_option', 'prob_threshold=0.0', '-f', 'srt',
+                 '-d', os.path.join(out['extra'], 'refine'), '-y'],
+                ('flash_attn', 'dtw_cost'))
+        stream = locate_word(greedy_20)
+        model = cache['model']
+        text = model.get_tokenizer('en', 'transcribe').decode(stream)
+        _, _, printed = request(
+            f'--locate of tokens {stream} of the greedy 20-s transcript (mode 0, '
+            'probability_threshold=0.0)',
+            [wav20, *model_args, '--locate', text, '--locate_option',
+             'probability_threshold=0.0', '-y'],
+            LOCATE_DECODE + ('dtw_cost',))
+        if not printed.strip():
+            raise AssertionError('cli --locate printed no match')
+        del model
+        request('-dq greedy, 20 s (a second load: int8 weights)',
+                [wav20, *model_args, '-dq', '-f', 'srt',
+                 '-d', os.path.join(out['extra'], 'dq'), *greedy],
+                CLI_GREEDY + ('woq_matmul',))
+        log(f'[cli] load_model calls: {len(loads)} ({", ".join(f"{s:.3f} s" for s in loads)})')
+        if len(loads) != 2:
+            raise AssertionError(f'cli: {len(loads)} loads, expected one float and one dq')
+    finally:
+        loaders.load_model = load_model
+        cache.clear()
+
+    def no_load(**kw):
+        raise AssertionError('a JSON input loaded a model')
+    loaders.load_model = no_load
+    try:
+        _, launches, _ = request('JSON -> SRT (no model)',
+                                 [batched_json, '-o', os.path.join(out['extra'], 'json.srt'),
+                                  '-y'])
+    finally:
+        loaders.load_model = load_model
+    if any(launches.values()) or cache:
+        raise AssertionError(f'cli JSON -> SRT launched {launches}')
     gc.collect()
     torch.cuda.empty_cache()
+    return counts
+
+
+def dyn_checks(torch) -> None:
+    """The dyn recipe of dq (STABLE_TS_TPU_WOQ=dyn: int8 activations x the
+    int8 weight, ``torch._int_mm``) at large-v3's linear shapes: M = 1, 5,
+    20, 1500, 3000 rows over (K, N) = (1280, 5120), (5120, 1280), (1280,
+    1280). The card's int32 sums must equal the CPU's of the same int8
+    operands bit for bit, the bf16 output must match the CPU's run of the
+    same function within 1e-6 of its largest value, and a rerun must be
+    bit-identical. Each shape's device time is logged beside woq_matmul's
+    and F.linear's on the weight widened to bf16 (one PyTorch call), with
+    its bound (int8 operations at the data sheet's 1,979 TOP/s), and the
+    rows padded to 17 are timed against _int_mm on rows already padded."""
+    from stable_ts_tpu_torch.models.whisper.quantization import (INT_MM_MIN_ROWS,
+                                                                 dyn_linear, int8_mm,
+                                                                 quantize_rows)
+    from stable_ts_tpu_torch.ops.woq_matmul import woq_matmul
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    for k, n in ((1280, 5120), (5120, 1280), (1280, 1280)):
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device='cuda', generator=gen)
+        scale = torch.rand(n, device='cuda', generator=gen) * 1e-3 + 1e-4
+        bias = torch.randn(n, device='cuda', generator=gen).to(torch.bfloat16)
+        w16 = (w.float() * scale[:, None]).to(torch.bfloat16)
+        for m in (1, 5, 20, 1500, 3000):
+            x = torch.randn(m, k, device='cuda', generator=gen).to(torch.bfloat16)
+            xq, _ = quantize_rows(x)
+            sums = int8_mm(xq, w)
+            torch.cuda.synchronize()
+            if not torch.equal(sums.cpu(), int8_mm(xq.cpu(), w.cpu())):
+                raise AssertionError(f'dyn ({m}, {k}) x ({n}, {k}): int32 sums differ '
+                                     'from the CPU')
+            got = dyn_linear(x, w, scale, bias)
+            ref = dyn_linear(x.cpu(), w.cpu(), scale.cpu(), bias.cpu())
+            err = check('dyn_linear', got.cpu(), ref, 1e-6, f'({m}, {k}) x ({n}, {k})')
+            rerun_identical('dyn_linear', lambda: dyn_linear(x, w, scale, bias), got,
+                            f'({m}, {k}) x ({n}, {k})')
+            ms = device_ms(lambda: dyn_linear(x, w, scale, bias))
+            woq = device_ms(lambda: woq_matmul(x, w, scale, bias))
+            lin = device_ms(lambda: torch.nn.functional.linear(x, w16, bias))
+            b = bound(nbytes(x, w, scale, bias) + m * n * 2, 2.0 * m * n * k, 'int8')
+            line = (f'[dyn] M={m} K={k} N={n}: dyn_linear {ms:.4f} ms, woq_matmul '
+                    f'{woq:.4f} ms, F.linear (bf16 weight) {lin:.4f} ms, bound '
+                    f'{b["bound_ms"]:.4f} ms ({b["bound_by"]}); int32 sums equal the '
+                    f'CPU\'s, max_abs_err {err:.3e}')
+            if m < INT_MM_MIN_ROWS:
+                padded = torch.zeros((INT_MM_MIN_ROWS, k), dtype=torch.int8, device='cuda')
+                padded[:m] = xq
+                raw = device_ms(lambda: torch._int_mm(padded, w.t()))
+                mm = device_ms(lambda: int8_mm(xq, w))
+                line += (f'; int8_mm with its padding to {INT_MM_MIN_ROWS} rows {mm:.4f} ms, '
+                         f'_int_mm on rows already padded {raw:.4f} ms')
+            log(line)
+
+
+def dyn_request(torch, dq_model, clip, ladder, default: dict) -> dict:
+    """The dq greedy 30-s request (kv_quant=4) again with
+    STABLE_TS_TPU_WOQ=dyn: it must run every quantized linear through
+    dyn_linear and launch woq_matmul 0 times. Its ms per decoder step is
+    logged beside the default request's (``default``) of the same run.
+    Returns its launches."""
+    from stable_ts_tpu_torch.models.whisper import quantization
+    calls = [0]
+    dyn_linear = quantization.dyn_linear
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return dyn_linear(*a, **kw)
+    quantization.dyn_linear = counted
+    os.environ['STABLE_TS_TPU_WOQ'] = 'dyn'
+    reqs = []
+    try:
+        counts = drive_paths(torch, dq_model, [
+            ('dq dyn', [('30 s greedy, language=en, kv_quant=4, STABLE_TS_TPU_WOQ=dyn', clip,
+                         dict(language='en', temperature=0, kv_quant=4))],
+             None, ('flash_attn', 'self_attn_decode', 'cross_attn_decode_int4',
+                    'logit_epilogue', 'dtw_cost'))], ladder, reqs)
+    finally:
+        del os.environ['STABLE_TS_TPU_WOQ']
+        quantization.dyn_linear = dyn_linear
+    (dyn,) = reqs
+    log(f'[dq dyn] {calls[0]} dyn_linear calls, {counts.get("woq_matmul", 0)} woq_matmul '
+        f'launches; ms per decoder step or prefill, same run: dyn {dyn["ms_per_step"]:.2f} '
+        f'(wall {dyn["wall"]:.3f} s) against the default {default["ms_per_step"]:.2f} '
+        f'(wall {default["wall"]:.3f} s)')
+    if counts.get('woq_matmul', 0) or not calls[0]:
+        raise AssertionError(f'dyn request: {counts.get("woq_matmul", 0)} woq_matmul '
+                             f'launches, {calls[0]} dyn_linear calls')
     return counts
 
 
@@ -1631,6 +1941,7 @@ def drive_paths(torch, model, paths, ladder, requests_out=None) -> dict:
                         windows=calls.get('encode', 0),
                         word_timing_s=phases.get('word_timing', 0.0),
                         word_timing_peak_bytes=peak[0],
+                        ms_per_step=phases['decode'] / (steps[0] + len(rungs)) * 1e3,
                         launches={k: after[k] - before.get(k, 0) for k in after}))
             path_counts = _build.launch_counts()
             log(f'[{path}] kernel launches on this path: {path_counts}')

@@ -29,6 +29,7 @@ setup(
         'torch': ['torch'],
     },
     entry_points={
-        'console_scripts': ['stable-ts-tpu=stable_ts_tpu.cli:cli'],
+        'console_scripts': ['stable-ts-tpu=stable_ts_tpu.cli:cli',
+                            'stable-ts-tpu-torch=stable_ts_tpu_torch.cli:cli'],
     },
 )

@@ -17,10 +17,13 @@ backward, self- and cross-attention decode with their beam and
 window-group entries, the greedy logit epilogue, the DTW cost, the int8
 weight-only matmul of ``dq`` models, the streamed vocab projection).
 ``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``
-(``profiling.py``). The framework-free host code (audio loading, results,
-regrouping, silence suppression, text output, the tokenizer) is the
-port's own copy of ``stable_ts_tpu``'s: this package imports nothing of
-``stable_ts_tpu`` and nothing of jax.
+(``profiling.py``). The ``stable-ts-tpu-torch`` command (``cli.py``, or
+``python -m stable_ts_tpu_torch``) drives all of it from the shell, and a
+faster-whisper model plugs into the same stabilization, alignment and
+refinement (``backends/``). The framework-free host code (audio loading,
+results, regrouping, silence suppression, text output, the tokenizer) is
+the port's own copy of ``stable_ts_tpu``'s: this package imports nothing
+of ``stable_ts_tpu`` and nothing of jax.
 """
 from ._version import __version__
 from .utils import tune_host_allocator as _tune_host_allocator
@@ -37,9 +40,11 @@ _LAZY = {
     'load_model': 'stable_ts_tpu_torch.loaders',
     'load_hf_whisper': 'stable_ts_tpu_torch.loaders',
     'load_mlx_whisper': 'stable_ts_tpu_torch.loaders',
+    'load_faster_whisper': 'stable_ts_tpu_torch.loaders',
     'modify_model': 'stable_ts_tpu_torch.loaders',
     'NonSpeechPredictor': 'stable_ts_tpu_torch.stabilization',
     'visualize_suppression': 'stable_ts_tpu_torch.stabilization',
+    'encode_video_comparison': 'stable_ts_tpu_torch.video_output',
     'IS_WHISPERLESS_VERSION': 'stable_ts_tpu_torch.constants',
     'WhisperTorch': 'stable_ts_tpu_torch.loaders',
     'load_test_model': 'stable_ts_tpu_torch.loaders',

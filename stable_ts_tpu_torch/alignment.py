@@ -36,7 +36,8 @@ from .constants import (CHUNK_LENGTH, FRAMES_PER_SECOND, HOP_LENGTH, N_FFT,
                         N_FRAMES, N_SAMPLES, N_SAMPLES_PER_TOKEN, SAMPLE_RATE,
                         TOKENS_PER_SECOND)
 from .batched import _next_token_probs_and_ranks
-from .loaders import is_faster_whisper_model
+from .backends.faster_whisper import (fw_alignment_func, fw_refinement_func,
+                                      fw_tokenizer, is_faster_whisper_model)
 from .models.whisper.model import decoder_apply, decoder_step, encoder_apply
 from .non_whisper.alignment import Aligner, WordToken
 from .non_whisper.refinement import MutedSpanProbe, Refiner
@@ -50,12 +51,6 @@ from .utils import format_timestamp, safe_print
 __all__ = ['align', 'align_words', 'refine', 'locate']
 
 
-def _refuse_faster_whisper(model):
-    if is_faster_whisper_model(model):
-        raise NotImplementedError('faster-whisper models are still to be '
-                                  'ported to stable_ts_tpu_torch (ROADMAP.md)')
-
-
 def _pad_mel(mel: torch.Tensor) -> torch.Tensor:
     """Pad/trim mel frames to exactly N_FRAMES."""
     if mel.shape[-1] >= N_FRAMES:
@@ -66,6 +61,8 @@ def _pad_mel(mel: torch.Tensor) -> torch.Tensor:
 def _resolve_tokenizer(model, text, language: Optional[str]):
     if language is None:
         language = getattr(text, 'language', None)
+    if is_faster_whisper_model(model):
+        return fw_tokenizer(model, language)
     if language is None:
         if model.is_multilingual:
             raise TypeError('expected argument for language')
@@ -154,7 +151,9 @@ def _assemble_word_dicts(word_tokens, word_tokens_l, jump_times,
 
 def _whisper_alignment_func(model, tokenizer, options: AllOptions) -> Callable:
     """(audio_segment, word_tokens) -> word timing dicts through the
-    model."""
+    model (or the backend's own word-timing API for adapter models)."""
+    if is_faster_whisper_model(model):
+        return fw_alignment_func(model, tokenizer)
     if _legacy_known_heads(model, options):
         return _fused_single_window_func(model, tokenizer)
     from .models.whisper.timing import add_word_timestamps
@@ -337,7 +336,6 @@ def align(
         **options,
 ) -> Optional[WhisperResult]:
     """Align plain text (or a prior result) to audio at word level."""
-    _refuse_faster_whisper(model)
     if tokenizer is None:
         tokenizer = _resolve_tokenizer(model, text, language)
     all_options = AllOptions(options, vanilla_align=True)
@@ -395,10 +393,11 @@ def align_words(
     segments are independent here, so the words equal the sequential
     path's.
     """
-    _refuse_faster_whisper(model)
     if tokenizer is None:
         tokenizer = _resolve_tokenizer(model, result, language)
-    if parallel is None:
+    if is_faster_whisper_model(model):
+        parallel = False  # lockstep batching is a feature of the port's engine
+    elif parallel is None:
         parallel = model.device.type == 'cuda'
     all_options = AllOptions(options, vanilla_align=True)
     aligner = Aligner(
@@ -434,7 +433,10 @@ def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
 def _whisper_refinement_func(model, tokenizer) -> Callable:
     """(audio[2, T], tokens) -> token probs (2, n_tokens, vocab < eot), one
     probe at a time: the two muted rows' mel on the model's device, the
-    encoder, the teacher-forced decoder, the softmax downloaded."""
+    encoder, the teacher-forced decoder, the softmax downloaded (or the
+    backend's own alignment API for adapter models)."""
+    if is_faster_whisper_model(model):
+        return fw_refinement_func(model, tokenizer)
     sot_len = len(tokenizer.sot_sequence)
 
     @torch.inference_mode()
@@ -733,21 +735,24 @@ def refine(
     forward a round instead of a loop over the spans;
     ``single_batch=True`` forces the loop (the reference CLI's switch).
     """
-    _refuse_faster_whisper(model)
     if result and (not result.has_words
                    or any(w.probability is None for w in result.all_words())):
         if not result.language:
             raise RuntimeError('cannot align words with result missing language')
         align_words(model, audio, result)
-    tokenizer = model.get_tokenizer(language=result.language, task='transcribe')
+    if is_faster_whisper_model(model):
+        tokenizer = fw_tokenizer(model, result.language)
+    else:
+        tokenizer = model.get_tokenizer(language=result.language,
+                                        task='transcribe')
     if result and not all(w.tokens for w in result.all_words()):
         for word in result.all_words():
             word.tokens = tokenizer.encode(word.word)
 
-    if parallel is None:
-        parallel = model.device.type == 'cuda'
-    if single_batch:
+    if single_batch or is_faster_whisper_model(model):
         parallel = False
+    elif parallel is None:
+        parallel = model.device.type == 'cuda'
     all_options = AllOptions(options, post=False, silence=False, align=False)
     refiner = Refiner(
         inference_func=_whisper_refinement_func(model, tokenizer),
@@ -763,7 +768,8 @@ def refine(
         abs_dur_change=abs_dur_change,
         word_level=word_level,
         precision=precision,
-        max_inference_tokens=model.dims.n_text_ctx - 6,
+        max_inference_tokens=(model.dims.n_text_ctx - 6
+                              if hasattr(model, 'dims') else 442),
         all_options=all_options,
     )
     return refiner.refine(audio, result, inplace)
@@ -837,7 +843,11 @@ def locate(
     cross-attention row). mode 1: + confirmation decode around the estimate.
     mode 0: + word timestamps on the confirmed match.
     """
-    _refuse_faster_whisper(model)
+    if is_faster_whisper_model(model):
+        # as in stable_ts_tpu, whose locate has no faster-whisper branch
+        # and whose modify_fw_model attaches no locate
+        raise NotImplementedError('locate runs on a WhisperTorch model only; '
+                                  'faster-whisper models have no locate')
     from .audio import prep_audio
     from .audio.denoiser import convert_demucs_kwargs
     from .models.whisper.decoding import (DecodingOptions, build_initial_tokens,

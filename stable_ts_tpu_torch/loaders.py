@@ -18,6 +18,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+# load_faster_whisper is exported from here, as in stable_ts_tpu.loaders
+from .backends.faster_whisper import (is_faster_whisper_model, load_faster_whisper,
+                                      modify_fw_model)
 from .models.whisper.decoding import (DecodingOptions, decode as _decode,
                                       decode_collect as _decode_collect,
                                       decode_launch as _decode_launch,
@@ -299,33 +302,17 @@ def load_mlx_whisper(name_or_path: str, **kwargs) -> WhisperTorch:
     return load_model(name_or_path, **kwargs)
 
 
-def load_faster_whisper(model_size_or_path: str, **model_init_options):
-    """The faster-whisper backend is still to be ported (ROADMAP.md)."""
-    raise NotImplementedError('load_faster_whisper is still to be ported to '
-                              'stable_ts_tpu_torch (ROADMAP.md)')
-
-
-def is_faster_whisper_model(model) -> bool:
-    """True for a (real or fake) faster_whisper.WhisperModel: something
-    with a CTranslate2 core and a feature extractor but no ``params``
-    (stable_ts_tpu/backends/faster_whisper.py:31-36)."""
-    return (not hasattr(model, 'params')
-            and hasattr(model, 'feature_extractor')
-            and hasattr(model, 'model'))
-
-
 def modify_model(model):
-    """Give ``model`` the stabilized method surface (the reference's
-    ``modify_model``, original_whisper.py:931). A :class:`WhisperTorch`
-    carries every method already and passes through unchanged; a
-    faster-whisper model waits for its backend (ROADMAP.md) and raises
-    ``NotImplementedError``; anything else raises ``TypeError``."""
+    """Give ``model`` the stabilized method surface, in place (the
+    reference's ``modify_model``, original_whisper.py:931). A
+    :class:`WhisperTorch` carries every method already and passes through
+    unchanged; a ``faster_whisper.WhisperModel`` gets the methods that
+    ``load_faster_whisper`` attaches; anything else raises ``TypeError``."""
     if isinstance(model, WhisperTorch):
         return model
     if is_faster_whisper_model(model):
-        raise NotImplementedError('faster-whisper models are still to be '
-                                  'ported to stable_ts_tpu_torch (ROADMAP.md)')
+        return modify_fw_model(model)
     raise TypeError(
-        f'cannot modify {type(model).__name__!r}: expected a WhisperTorch. '
-        'Other ASR engines plug in through transcribe_any / Aligner / '
-        'Refiner.')
+        f'cannot modify {type(model).__name__!r}: expected a WhisperTorch or a '
+        'faster_whisper.WhisperModel. Other ASR engines plug in through '
+        'transcribe_any / Aligner / Refiner.')

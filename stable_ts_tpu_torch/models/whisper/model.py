@@ -45,7 +45,7 @@ from ...ops.flash_attn import flash_attention
 from ...ops.self_attn import self_attn_decode
 from ...ops.vocab_proj import MAX_ROWS, MIN_VOCAB, vocab_proj
 from .dims import ModelDimensions
-from .quantization import QuantizedLinear
+from .quantization import QuantizedLinear, quantize_rows
 
 
 # -- primitives ----------------------------------------------------------------------------
@@ -274,23 +274,6 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
     x = decoder.ln(x)
     logits = decoder.vocab_logits(x)
     return logits, (torch.stack(qks) if capture_qk else None)
-
-
-def quantize_rows(t: torch.Tensor, bits: int = 8):
-    """Per-row symmetric int``bits`` over the last axis: (..., d) -> int8
-    values (..., d) and f32 scales (...,). Half-to-even rounding, as
-    jnp.round. The scale is amax times the f32 reciprocal of the grid's
-    top, not amax divided by it: the JAX functions that quantize cache rows
-    are compiled, and XLA folds the division by the constant into that
-    multiply, so the two packages round the same values to the same
-    codes."""
-    qmax = float(2 ** (bits - 1) - 1)
-    t32 = t.float()
-    amax = t32.abs().amax(dim=-1, keepdim=True)
-    sc = torch.where(amax > 0, amax * torch.tensor(1.0 / qmax, dtype=torch.float32),
-                     torch.ones_like(amax))
-    q = torch.clamp(torch.round(t32 / sc), -qmax, qmax).to(torch.int8)
-    return q, sc[..., 0]
 
 
 def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,

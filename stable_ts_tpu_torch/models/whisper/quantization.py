@@ -7,6 +7,12 @@ stable_ts_tpu/models/whisper/quantization.py).
   :class:`QuantizedLinear` holds it in torch's (out, in) layout and
   multiplies through the weight-only kernel (``ops/woq_matmul.py``), which
   applies the scale after the K-sum.
+- **``dyn``**, the int8 x int8 recipe of stable_ts_tpu's ``linear``
+  (models/whisper/model.py:64-104, its default on the TPU), runs when
+  ``STABLE_TS_TPU_WOQ`` is ``dyn``, ``1``, ``on`` or ``true``
+  (:func:`dyn_linear`): the activations are quantized per row to int8 and
+  the product takes int32 sums against the int8 weight. Every other value
+  keeps the weight-only kernel.
 - As in the JAX package (``_LINEAR_KEYS``), conv stems, embeddings and
   layer norms are not quantized.
 
@@ -14,12 +20,18 @@ stable_ts_tpu/models/whisper/quantization.py).
 position), with ``bits=4`` snapping to the int4 grid ([-7, 7], amax / 7)
 and returning unpacked int8 values.
 """
+import os
+
 import torch
 from torch import nn
 
 from ...ops.woq_matmul import woq_matmul
 
 LINEAR_KEYS = ('q', 'k', 'v', 'out', 'fc1', 'fc2')
+# torch._int_mm on a CUDA tensor (cuBLASLt's int8 tensor-core product) takes
+# more than 16 rows; fewer are padded with zero rows and sliced off (about
+# 0.002 ms a call on an H100 80GB HBM3 at 700 W: PERF.md, the dyn rows)
+INT_MM_MIN_ROWS = 17
 
 
 def quantize_tensor(x: torch.Tensor, reduce_axis: int = -1, bits: int = 8):
@@ -42,10 +54,63 @@ def quantize_weight(w: torch.Tensor):
     return q, scale[..., 0]
 
 
+def _woq_mode() -> str:
+    """How quantized linears multiply, from stable_ts_tpu's own switch
+    (model.py:64-81): 'dyn' for ``STABLE_TS_TPU_WOQ`` = dyn, 1, on or true;
+    'woq' (the weight-only kernel, ``ops/woq_matmul.py``) for any other
+    value or none."""
+    pref = os.environ.get('STABLE_TS_TPU_WOQ', 'auto')
+    return 'dyn' if pref in ('dyn', '1', 'on', 'true') else 'woq'
+
+
+def quantize_rows(t: torch.Tensor, bits: int = 8):
+    """Per-row symmetric int``bits`` over the last axis: (..., d) -> int8
+    values (..., d) and f32 scales (...,). Half-to-even rounding, as
+    jnp.round. The scale is amax times the f32 reciprocal of the grid's
+    top, not amax divided by it: the JAX functions that quantize cache rows
+    and ``dyn``'s activations are compiled, and XLA folds the division by
+    the constant into that multiply, so the two packages round the same
+    values to the same codes."""
+    qmax = float(2 ** (bits - 1) - 1)
+    t32 = t.float()
+    amax = t32.abs().amax(dim=-1, keepdim=True)
+    sc = torch.where(amax > 0, amax * torch.tensor(1.0 / qmax, dtype=torch.float32),
+                     torch.ones_like(amax))
+    q = torch.clamp(torch.round(t32 / sc), -qmax, qmax).to(torch.int8)
+    return q, sc[..., 0]
+
+
+def int8_mm(xq: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (N, K) int8 -> (M, N) int32 sums, exact. On a CUDA
+    tensor ``torch._int_mm`` with the rows padded to ``INT_MM_MIN_ROWS``
+    (it raises on a K or N that is not a multiple of 8); on the CPU the
+    same call takes any shape."""
+    m = xq.shape[0]
+    if xq.device.type == 'cuda' and m < INT_MM_MIN_ROWS:
+        padded = xq.new_zeros((INT_MM_MIN_ROWS, xq.shape[1]))
+        padded[:m] = xq
+        return torch._int_mm(padded, weight.t())[:m]
+    return torch._int_mm(xq, weight.t())
+
+
+def dyn_linear(x, weight, scale, bias=None) -> torch.Tensor:
+    """stable_ts_tpu's ``dyn`` linear (model.py:93-104): x quantized per
+    row to int8 (:func:`quantize_rows`), int32 sums against the (N, K) int8
+    weight, then ``(sums * row scale) * column scale + bias`` in f32, cast
+    to x's dtype."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    xq, xs = quantize_rows(x.reshape(-1, k))
+    out = int8_mm(xq, weight).float() * xs[:, None] * scale
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype).reshape(*lead, weight.shape[0])
+
+
 class QuantizedLinear(nn.Module):
     """A linear with an int8 (out, in) weight, f32 per-output scales and an
     optional float bias; ``forward`` is ``(x @ weight^T) * scale + bias``
-    in x's dtype, through the weight-only kernel."""
+    in x's dtype, through the weight-only kernel, or the ``dyn`` recipe
+    when ``STABLE_TS_TPU_WOQ`` selects it."""
 
     def __init__(self, weight: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor = None):
@@ -82,6 +147,8 @@ class QuantizedLinear(nn.Module):
         return lin.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _woq_mode() == 'dyn':
+            return dyn_linear(x, self.weight, self.scale, self.bias)
         return woq_matmul(x, self.weight, self.scale, self.bias)
 
     def extra_repr(self) -> str:

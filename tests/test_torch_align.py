@@ -265,15 +265,17 @@ def test_align_words_parallel_defaults_to_the_card(known, monkeypatch):
 
 
 def test_faster_whisper_models_are_refused():
-    from stable_ts_tpu_torch.alignment import align, align_words, locate, refine
+    """locate alone: as in stable_ts_tpu, it has no faster-whisper branch
+    (align, align_words and refine take such a model through the backend,
+    tests/test_torch_fw_backend.py)."""
+    from stable_ts_tpu_torch.alignment import locate
 
     class FakeFasterWhisper:
         model = object()
         feature_extractor = object()
 
-    for entry in (align, align_words, refine, locate):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            entry(FakeFasterWhisper(), _noise(1), ' hello', language='en')
+    with pytest.raises(NotImplementedError, match='faster-whisper models have no locate'):
+        locate(FakeFasterWhisper(), _noise(1), ' hello', language='en')
 
 
 def test_package_exports():
@@ -292,8 +294,12 @@ def test_package_exports():
     assert stable_ts_tpu_torch.transcribe_any is non_whisper.transcribe_any
     assert stable_ts_tpu_torch.Aligner is non_whisper.Aligner
     assert stable_ts_tpu_torch.Refiner is non_whisper.Refiner
-    assert set(stable_ts_tpu.__all__) - set(stable_ts_tpu_torch.__all__) <= {
-        'load_faster_whisper', 'encode_video_comparison'}
+    # every name stable_ts_tpu exports; the port's own entry points beside
+    assert set(stable_ts_tpu.__all__) - set(stable_ts_tpu_torch.__all__) == set()
+    from stable_ts_tpu_torch import loaders, video_output
+    assert stable_ts_tpu_torch.load_faster_whisper is loaders.load_faster_whisper
+    assert (stable_ts_tpu_torch.encode_video_comparison
+            is video_output.encode_video_comparison)
 
 
 # -- find_alignment with a precomputed capture --------------------------------------------

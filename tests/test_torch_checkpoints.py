@@ -352,18 +352,27 @@ def test_load_model_missing_checkpoint_and_vocabulary_raise(tmp_path, monkeypatc
 
 
 def test_modify_model_passes_the_port_through_and_rejects_others(tmp_path):
+    """A WhisperTorch passes through; a faster-whisper model gains the
+    stabilized methods in place; anything else raises."""
     from stable_ts_tpu_torch import load_test_model, modify_model
 
     class FakeFasterWhisper:
         model = object()
         feature_extractor = object()
 
+        def transcribe(self, audio, **options):
+            raise AssertionError('not called')
+
     model = load_test_model(device='cpu')
     assert modify_model(model) is model
     with pytest.raises(TypeError, match='WhisperTorch'):
         modify_model(object())
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        modify_model(FakeFasterWhisper())
+    fw = FakeFasterWhisper()
+    assert modify_model(fw) is fw
+    assert fw.transcribe_original.__func__ is FakeFasterWhisper.transcribe
+    for name in ('transcribe', 'transcribe_stable', 'align', 'align_words', 'refine'):
+        assert getattr(fw, name).__self__ is fw, name
+    assert not hasattr(fw, 'locate')
 
 
 def test_dq_model_is_not_written(tmp_path):

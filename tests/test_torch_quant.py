@@ -293,3 +293,196 @@ def test_dequantize_params_matches_jax(dtype):
                 np.testing.assert_array_equal(
                     lin.weight.float().numpy(),
                     np.asarray(w.astype(jnp.float32)).T)
+
+
+# -- the dyn recipe: int8 activations x int8 weights (STABLE_TS_TPU_WOQ=dyn) ----------------
+
+@pytest.fixture
+def jax_dyn(monkeypatch):
+    """JAX's linear under STABLE_TS_TPU_WOQ=dyn. JAX reads the switch when
+    it traces, so its caches are cleared on the way in (no trace of another
+    mode is reused) and on the way out (no dyn trace outlives the test)."""
+    import jax
+    monkeypatch.setenv('STABLE_TS_TPU_WOQ', 'dyn')
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _jax_dyn_codes(x, q):
+    """The codes, row scales and int32 sums of stable_ts_tpu's dyn branch
+    (models/whisper/model.py:93-99), compiled as the model compiles them."""
+    import jax
+
+    @jax.jit
+    def steps(x, q):
+        x32 = x.astype(jnp.float32)
+        amax = jnp.max(jnp.abs(x32), axis=-1, keepdims=True)
+        xs = jnp.where(amax > 0, amax / 127.0, 1.0)
+        xq = jnp.clip(jnp.round(x32 / xs), -127, 127).astype(jnp.int8)
+        return xq, xs, jax.lax.dot_general(xq, q, (((1,), (0,)), ((), ())),
+                                           preferred_element_type=jnp.int32)
+    return [np.asarray(a) for a in steps(x, q)]
+
+
+def _check_dyn_against_jax(x, q_t, scale_t, bias_t, qa, b_jax):
+    """The port's codes, scales and int32 sums equal JAX's; its output is
+    within 1e-6 of JAX's compiled linear relative to the largest value (XLA
+    contracts the scale and bias into one fused multiply-add, the port
+    rounds twice). x: (M, K) torch tensor."""
+    import jax
+    from stable_ts_tpu.models.whisper.model import linear
+    from stable_ts_tpu_torch.models.whisper.quantization import (dyn_linear, int8_mm,
+                                                                 quantize_rows)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if x.dtype == torch.bfloat16
+                                               else jnp.float32)
+    ref_q, ref_s, ref_y = _jax_dyn_codes(xj, qa.q)
+    xq, xs = quantize_rows(x)
+    np.testing.assert_array_equal(xq.numpy(), ref_q)
+    np.testing.assert_array_equal(xs.numpy(), ref_s[:, 0])
+    np.testing.assert_array_equal(int8_mm(xq, q_t).numpy(), ref_y)
+    got = dyn_linear(x, q_t, scale_t, bias_t)
+    ref = np.asarray(jax.jit(linear)(xj, qa, b_jax).astype(jnp.float32))
+    assert got.dtype == x.dtype
+    assert _rel_err(got.float().numpy(), ref) <= 1e-6
+
+
+@pytest.mark.parametrize('bias', [False, True], ids=['no_bias', 'bias'])
+@pytest.mark.parametrize('m', [1, 5, 64])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_dyn_matches_jax_linear(dtype, m, bias, jax_dyn):
+    from stable_ts_tpu.models.whisper.quantization import quantize_weight as qw_jax
+    rng = np.random.default_rng(50 + m + 7 * bias)
+    k, n = 96, 80
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    x[m // 2] = 0.0 if m > 1 else x[0]          # a zero row: scale 1, codes 0
+    qa = qw_jax(jnp.asarray(rng.standard_normal((k, n)).astype(np.float32)))
+    b = rng.standard_normal(n).astype(np.float32) if bias else None
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    q_t = torch.from_numpy(np.asarray(qa.q).T.copy())
+    s_t = torch.from_numpy(np.asarray(qa.scale)[0].copy())
+    _check_dyn_against_jax(xt, q_t, s_t, None if b is None else torch.from_numpy(b), qa,
+                           None if b is None else jnp.asarray(b))
+
+
+def test_dyn_selects_the_recipe_and_nothing_else(monkeypatch):
+    """JAX's switch values select dyn; any other keeps the weight-only
+    product (its CPU twin here)."""
+    from stable_ts_tpu_torch.models.whisper import quantization
+    from stable_ts_tpu_torch.ops import woq_matmul
+    lin = quantization.QuantizedLinear.from_linear(torch.nn.Linear(64, 48))
+    x = torch.randn(3, 64, generator=torch.Generator().manual_seed(0))
+    for value in ('dyn', '1', 'on', 'true'):
+        monkeypatch.setenv('STABLE_TS_TPU_WOQ', value)
+        assert torch.equal(lin(x), quantization.dyn_linear(x, lin.weight, lin.scale,
+                                                           lin.bias))
+    for value in ('auto', 'pallas', 'interpret', 'astype', '0', 'off'):
+        monkeypatch.setenv('STABLE_TS_TPU_WOQ', value)
+        assert torch.equal(lin(x), woq_matmul.woq_matmul(x, lin.weight, lin.scale,
+                                                         lin.bias))
+    monkeypatch.delenv('STABLE_TS_TPU_WOQ')
+    assert quantization._woq_mode() == 'woq'
+
+
+def test_dyn_rows_go_unpadded_on_the_cpu():
+    """The CUDA product takes more than 16 rows: int8_mm pads fewer with
+    zero rows and slices them off; on the CPU the rows go as they are."""
+    from stable_ts_tpu_torch.models.whisper import quantization
+    calls = []
+    real = torch._int_mm
+    rng = np.random.default_rng(3)
+    xq = torch.from_numpy(rng.integers(-127, 128, (3, 32)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (16, 32)).astype(np.int8))
+    try:
+        torch._int_mm = lambda a, b: calls.append(a.shape) or real(a, b)
+        got = quantization.int8_mm(xq, w)
+    finally:
+        torch._int_mm = real
+    assert calls == [(3, 32)] and quantization.INT_MM_MIN_ROWS == 17
+    np.testing.assert_array_equal(got.numpy(), xq.int().numpy() @ w.int().numpy().T)
+
+
+def _dyn_model_pair():
+    from stable_ts_tpu.loaders import load_test_model as load_jax
+    from stable_ts_tpu_torch.loaders import from_jax
+    jax_model = load_jax(alignment_heads=[(0, 1), (1, 0), (1, 1)], dq=True)
+    return jax_model, from_jax(jax_model, device='cpu')
+
+
+def _noise(seconds, seed=21):
+    return (np.random.default_rng(seed).standard_normal(16000 * seconds)
+            * 0.1).astype(np.float32)
+
+
+def test_dyn_linears_match_jax_inside_the_model(jax_dyn, monkeypatch):
+    """Every quantized linear of the tiny dq model on the activations a dyn
+    transcribe gives it (the encoder, the prefill, the decode steps, the
+    timing pass): the port's codes and int32 sums equal JAX's, its output
+    within 1e-6 of JAX's compiled linear."""
+    from stable_ts_tpu.models.whisper.quantization import QuantizedArray
+    from stable_ts_tpu_torch.models.whisper.quantization import QuantizedLinear
+    monkeypatch.setenv('STABLE_TS_TPU_CROSS', 'interpret')
+    monkeypatch.setenv('STABLE_TS_TPU_SELFKV', '1')
+    _, port_model = _dyn_model_pair()
+    seen = {}   # (module name, more than one row): (module, its first such input)
+
+    def keep(name):
+        def hook(mod, args):
+            x = args[0]
+            seen.setdefault((name, x.shape[:-1].numel() > 1), (mod, x.detach().clone()))
+        return hook
+    hooks = [mod.register_forward_pre_hook(keep(name))
+             for name, mod in port_model.params.named_modules()
+             if isinstance(mod, QuantizedLinear)]
+    try:
+        port_model.transcribe(_noise(8), language='en', temperature=0, verbose=None,
+                              kv_quant=4)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len({name for name, _ in seen}) == 2 * 6 + 2 * 10   # every linear ran
+    for mod, x in seen.values():
+        qa = QuantizedArray(jnp.asarray(mod.weight.numpy().T.copy()),
+                            jnp.asarray(mod.scale.numpy()[None]), jnp.float32)
+        b = None if mod.bias is None else mod.bias.detach()
+        _check_dyn_against_jax(x.reshape(-1, x.shape[-1]), mod.weight, mod.scale, b, qa,
+                               None if b is None else jnp.asarray(b.numpy()))
+
+
+def test_dyn_transcribe_matches_jax(jax_dyn, monkeypatch):
+    """A dq transcribe under dyn (packed int4 cross K/V, greedy, known
+    heads) on the 20 s of noise the option cases of test_torch_slice.py
+    use: JAX's tokens and word-level SRT bytes."""
+    monkeypatch.setenv('STABLE_TS_TPU_CROSS', 'interpret')
+    monkeypatch.setenv('STABLE_TS_TPU_SELFKV', '1')
+    monkeypatch.setenv('STABLE_TS_TPU_EPI', '0')
+    jax_model, port_model = _dyn_model_pair()
+    audio = _noise(20)
+    kw = dict(language='en', temperature=0, verbose=None, kv_quant=4)
+    ref = jax_model.transcribe(audio, **kw)
+    got = port_model.transcribe(audio, **kw)
+    assert [s.tokens for s in got.segments] == [s.tokens for s in ref.segments]
+    assert len(ref.segments) > 1
+    assert got.to_srt_vtt(word_level=True) == ref.to_srt_vtt(word_level=True)
+
+
+def test_dyn_moves_with_the_last_bit_of_the_input(jax_dyn, monkeypatch):
+    """Why the dyn comparisons of whole requests stop at the cases above:
+    scaling 40 s of noise by (1 + 2^-23) changes the word-level SRT of a
+    dyn transcribe in JAX and in the port alike. An activation one bit off
+    can cross a rounding edge of its int8 code, and the frameworks' float
+    arithmetic differs in the last bit (XLA contracts multiply-adds into
+    FMAs and sums in another order), so the port cannot follow JAX's dyn
+    further than JAX follows itself."""
+    monkeypatch.setenv('STABLE_TS_TPU_CROSS', 'interpret')
+    monkeypatch.setenv('STABLE_TS_TPU_SELFKV', '1')
+    monkeypatch.setenv('STABLE_TS_TPU_EPI', '0')
+    jax_model, port_model = _dyn_model_pair()
+    audio = _noise(40)
+    nudged = audio * np.float32(1 + 2 ** -23)
+    assert not np.array_equal(audio, nudged)
+    kw = dict(language='en', temperature=0, verbose=None, kv_quant=4)
+    for model in (jax_model, port_model):
+        a, b = (model.transcribe(clip, **kw).to_srt_vtt(word_level=True)
+                for clip in (audio, nudged))
+        assert a != b, type(model).__name__

@@ -17,7 +17,8 @@ equal text and SRT bytes too. A fresh interpreter that transcribes and
 takes a train step with the port loads neither jax, nor optax, nor any
 module of stable_ts_tpu; it also runs ``transcribe_batched``, writes a
 checkpoint, loads it and transcribes with the 'new' aligner and with an
-extra model, and runs ``align`` and ``align_words``. Importing the
+extra model, runs ``align``, ``align_words``, ``refine`` and ``locate``,
+and runs the command line on a WAV and on its JSON. Importing the
 port tunes the host allocator, as importing stable_ts_tpu does.
 ``transcribe_minimal`` gives JAX's text and SRT bytes, and
 ``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``."""
@@ -197,6 +198,17 @@ def test_fresh_interpreter_never_imports_jax(tmp_path):
             assert isinstance(model.locate(audio, ' hello', language='en',
                                            mode=mode, verbose=None,
                                            probability_threshold=0.0), list)
+        import wave
+        with wave.open('clip.wav', 'wb') as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((audio * 32767).astype('<i2').tobytes())
+        from stable_ts_tpu_torch.cli import cli
+        cli(['clip.wav', '--model', 'tiny.pt', '--device', 'cpu', '--language', 'en',
+             '-f', 'srt,json', '-y', '-v', '0'])
+        cli(['clip.json', '-o', 'again.vtt', '-y', '-v', '0'])
+        assert open('clip.srt').read() and open('again.vtt').read()
         assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
         assert 'optax' not in sys.modules
         old = sorted(m for m in sys.modules
