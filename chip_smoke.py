@@ -46,7 +46,7 @@ step:
   flash and DTW kernels;
 - cli: on that ``large-v3.pt``, ``python -m stable_ts_tpu_torch`` as a
   subprocess on the 20-s clip as a 16-bit WAV (``--dtype bfloat16
-  --language en``, all six formats, the default fallback ladder): exit 0,
+  --language en``, all six formats, the fallback ladder 0, 0.4, 0.8): exit 0,
   six non-empty files, SRT bytes equal to the same argv run in this
   process (walls logged: the subprocess's start-up, imports, build check
   and load beside the in-process request's); then, in this process on one
@@ -85,8 +85,8 @@ step:
   of 2 (the encoder's weight-only products at M = 3000), the 60-s
   ``align_words`` (64 flash, one DTW and the weight-only products at
   M = 8 x 1500), a refine of its result and a locate in mode 1, both of
-  which must launch ``woq_matmul``; then the greedy 30-s request again
-  with STABLE_TS_TPU_WOQ=dyn (int8 activations x int8 weights through
+  which must launch ``woq_matmul``; then a greedy request on the first
+  20 s of that clip with STABLE_TS_TPU_WOQ=dyn (int8 activations x int8 weights through
   ``torch._int_mm``), which must launch ``woq_matmul`` 0 times, its ms a
   step logged beside the default's;
 - train: a fresh bf16 model, three steps of ``make_train_step`` (AdamW as
@@ -94,7 +94,28 @@ step:
   label mask; each step must launch the flash forward and both backward
   kernels 64 times (32 encoder + 32 decoder cross layers) and leave every
   parameter a finite, non-zero gradient; then a fourth step and one
-  window's encoder forward under torch.profiler (device busy share).
+  window's encoder forward under torch.profiler (device busy share);
+- mesh one (the multi-GPU layer, ``parallel/``, on a world of one rank
+  over NCCL, ``init_process_group`` at world size 1): a fresh large-v3
+  bf16 model sharded on its (dp 1, tp 1) mesh runs the batched greedy
+  300 s, the 60-s ``align_words`` and a refine of its result (after the
+  refine paths), then, after the dq paths, the batched dq request on a
+  freshly quantized sharded model and two train steps; each must launch
+  its kernels and equal the unsharded run of this process bit for bit
+  (collectives over one rank are the identity), its wall logged beside
+  the unsharded one's;
+- mesh two (last): two ranks spawned on the one card over gloo (NCCL
+  refuses two ranks on one GPU; gloo reduces CUDA tensors through the
+  host), each on cuda:0, on (dp 1, tp 2) and (dp 2, tp 1):
+  ``transcribe_batched`` greedy 60 s, ``align_words`` of 60 s and a
+  refine of it on f32 weights, held against this process's unsharded f32
+  runs (the same text and words, every start within 0.021 s), the greedy
+  on bf16 weights (its differences to the unsharded bf16 run logged),
+  and two train steps of large-v3 cut to 4 + 4 layers (f32 losses within
+  1e-4 relative); each rank must launch the kernels of each request at
+  its shard's shapes, and both ranks return the same results; walls and
+  each rank's peak device memory are logged (the ranks share the card,
+  so the walls are not a speed-up).
 
 The launch counts are reset before each path (each train step, each
 batched and each align request) and read after it; the script fails unless each path
@@ -104,7 +125,10 @@ kernel is also held against its twin at the batched driver's shapes
 entry over 4 windows x 5 beams, the beam entry at 20 rows, int4 at 2 rows,
 the epilogue at B = 8, vocab_proj at M = 20, woq_matmul at M = 3000 and
 12000, the
-DTW over (8, 252, 1500) in one launch beside 8 launches), and the
+DTW over (8, 252, 1500) in one launch beside 8 launches), at the tp = 2
+and tp = 4 shard shapes of the mesh paths (flash, the self, cross,
+group, beam and int4 entries at 10 and 5 heads, woq_matmul at the
+sharded linears' (N, K), M = 8 and 12000), and the
 cross entry with bf16 K/V and the self entry with a bf16 cache of 128
 rows at pos 25, locate's float caches, at the sequential shapes. The dyn
 recipe (a library product, not a kernel of the port, so not in the
@@ -136,7 +160,8 @@ torch.mm of the same product beside each as "yardstick_mm_ms" (not the
 same function), and the DTW's has its time a row of the chain
 ("ms_per_row"); the kernels' numbers at the batched shapes are under "batched" (the
 epilogue's B = 8 under "B=8", vocab_proj's M = 20 under "M=20",
-woq_matmul's M = 3000 and 12000 under "M=3000" and "M=12000"); the cross
+woq_matmul's M = 3000 and 12000 under "M=3000" and "M=12000"), the
+numbers at the tp shard shapes under "shards"; the cross
 entry's bf16 K/V under "bf16_kv", the self entry's bf16 cache at
 locate's shape under "bf16_cache" and at (32,1,256,1280) pos 200 under
 "bf16_cache_pos200". The line
@@ -539,6 +564,7 @@ def kernel_checks(torch, results: dict) -> None:
     vocab_checks(torch, results, randn)
     flash_bwd_checks(torch, results, randn)
     batched_kernel_checks(torch, results, randn, gen)
+    shard_kernel_checks(torch, results, randn, gen)
 
 
 def batched_kernel_checks(torch, results: dict, randn, gen) -> None:
@@ -1206,12 +1232,7 @@ def main() -> int:
     dims = ModelDimensions(**OPENAI_MODEL_DIMS[MODEL])
     t0 = time.perf_counter()
     params = init_params(dims, seed=0, dtype=torch.bfloat16, device='cuda')
-    # synthetic rank table the size of the multilingual vocabulary (bench.py)
-    ranks = {bytes([b]): b for b in range(256)}
-    i = 256
-    while len(ranks) < 50257:
-        ranks[b'\x00' + i.to_bytes(3, 'big')] = i
-        i += 1
+    ranks = synthetic_ranks()
     model = WhisperTorch(dims, params, device='cuda', name=MODEL, ranks=ranks,
                          alignment_heads=alignment_heads.get_alignment_heads(
                              MODEL, dims.n_text_layer, dims.n_text_head))
@@ -1315,6 +1336,13 @@ def main() -> int:
         counts[name] = counts.get(name, 0) + n
     del f32_model
 
+    # -- a world of one over NCCL: the sharded code path, bit for bit the unsharded ----
+    heads = model.alignment_heads
+    mesh_counts, mesh = mesh_one(torch, dims, ranks, heads, model, audio, long_audio,
+                                 batched_reqs, aligned_60, align_segments)
+    for name, n in mesh_counts.items():
+        counts[name] = counts.get(name, 0) + n
+
     # -- the dq path: the same weights quantized on the card, int4 cross K/V -------------
     from stable_ts_tpu_torch.models.whisper.quantization import quantized_bytes
     float_bytes = quantized_bytes(model.params)
@@ -1342,7 +1370,8 @@ def main() -> int:
     dq_requests = []
     for name, n in drive_paths(torch, dq_model, dq_paths, ladder, dq_requests).items():
         counts[name] = counts.get(name, 0) + n
-    for name, n in dyn_request(torch, dq_model, beam_clip, ladder, dq_requests[0]).items():
+    for name, n in dyn_request(torch, dq_model, beam_clip[:20 * SR], ladder,
+                               dq_requests[0]).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in batched_paths(torch, [
             ('batched dq', dq_model, long_audio[210 * SR:270 * SR],
@@ -1375,11 +1404,25 @@ def main() -> int:
     for name, n in dq_counts.items():
         counts[name] = counts.get(name, 0) + n
 
-    # -- the train path: a fresh float model (the dq path quantized the old one) ---------
+    # -- the world of one: the batched dq request and two train steps, sharded --------
     del dq_model, params
     gc.collect()   # the timed methods drive_paths set refer to their model
     torch.cuda.empty_cache()
+    for name, n in mesh_one_dq_and_train(torch, dims, ranks, heads, mesh, long_audio,
+                                         batched_reqs, audio).items():
+        counts[name] = counts.get(name, 0) + n
+
+    # -- the train path: a fresh float model (the dq path quantized the old one) ---------
+    gc.collect()
+    torch.cuda.empty_cache()
     for name, n in train_path(torch, dims, audio).items():
+        counts[name] = counts.get(name, 0) + n
+
+    # -- two ranks on the one card over gloo: tp = 2 and dp = 2, gated in f32 ----------
+    del batched_reqs, aligned_60
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in mesh_two(torch, heads).items():
         counts[name] = counts.get(name, 0) + n
     loaded = sorted(m for m in sys.modules if m in ('jax', 'optax', 'stable_ts_tpu')
                     or m.startswith(('jax.', 'optax.', 'stable_ts_tpu.')))
@@ -1640,7 +1683,9 @@ def cli_paths(torch, pt: str, audio, tmp: str, greedy_20: dict) -> dict:
     wav20 = write_wav(os.path.join(tmp, 'clip20.wav'), audio[75 * SR:95 * SR])
     wav120 = write_wav(os.path.join(tmp, 'clip120.wav'), audio[:120 * SR])
     model_args = ['--model', pt, '--dtype', 'bfloat16', '--language', 'en']
-    argv = [wav20, *model_args, '--output_format', ','.join(CLI_FORMATS)]
+    # a three-rung fallback ladder (0, 0.4, 0.8), half the default's six
+    argv = [wav20, *model_args, '--output_format', ','.join(CLI_FORMATS),
+            '--temperature_increment_on_fallback', '0.4']
     out = {name: os.path.join(tmp, 'cli_' + name) for name in ('sub', 'main', 'extra')}
 
     torch.cuda.synchronize()
@@ -1693,7 +1738,7 @@ def cli_paths(torch, pt: str, audio, tmp: str, greedy_20: dict) -> dict:
 
     loaders.load_model = timed_load
     try:
-        main_wall, _, _ = request('the subprocess argv, 20 s (the fallback ladder)',
+        main_wall, _, _ = request('the subprocess argv, 20 s (the ladder 0, 0.4, 0.8)',
                                   argv + ['--output_dir', out['main'], '-y'], CLI_GREEDY,
                                   quiet=False)
         log(f'[cli] python -m stable_ts_tpu_torch (20 s, bf16, six formats) as a '
@@ -1824,7 +1869,7 @@ def dyn_checks(torch) -> None:
 
 
 def dyn_request(torch, dq_model, clip, ladder, default: dict) -> dict:
-    """The dq greedy 30-s request (kv_quant=4) again with
+    """A dq greedy request (kv_quant=4) on ``clip`` (20 s) with
     STABLE_TS_TPU_WOQ=dyn: it must run every quantized linear through
     dyn_linear and launch woq_matmul 0 times. Its ms per decoder step is
     logged beside the default request's (``default``) of the same run.
@@ -1841,7 +1886,7 @@ def dyn_request(torch, dq_model, clip, ladder, default: dict) -> dict:
     reqs = []
     try:
         counts = drive_paths(torch, dq_model, [
-            ('dq dyn', [('30 s greedy, language=en, kv_quant=4, STABLE_TS_TPU_WOQ=dyn', clip,
+            ('dq dyn', [('20 s greedy, language=en, kv_quant=4, STABLE_TS_TPU_WOQ=dyn', clip,
                          dict(language='en', temperature=0, kv_quant=4))],
              None, ('flash_attn', 'self_attn_decode', 'cross_attn_decode_int4',
                     'logit_epilogue', 'dtw_cost'))], ladder, reqs)
@@ -2524,6 +2569,538 @@ def check_rungs(options: dict, rungs: list, result, ladder: tuple) -> None:
             raise AssertionError(f'decode calls {set(rungs)}, expected '
                                  f'{{(0, None, {beam})}}')
 
+
+# -- the multi-GPU layer: kernels at the tp shard shapes, a world of one over
+# NCCL, two ranks on the one card over gloo --------------------------------------------
+
+def shard_kernel_checks(torch, results: dict, randn, gen) -> None:
+    """Every kernel that runs on a tp shard, at the shard's shapes for
+    tp = 2 and tp = 4 (large-v3's 20 heads of 64: 10 or 5 heads, d = 640
+    or 320): flash over the batched encoder (8,1500,d) and the capture pass
+    (8,256,d) x 1500; the self entry at 8 rows of an (8,256,d) int8 cache;
+    the cross entry at 8 rows and the group entry over 4 windows x 5 beams
+    of int8 K/V; the beam self entry at 20 rows; the int4 entries at 2 rows
+    and g = 5; woq_matmul at M = 8 (a batched decode step) and 12000 (eight
+    windows' encoder) for each sharded linear, (N, K) = (3d, 1280) the
+    fused qkv, (1280, d) out, (4d, 1280) fc1, (1280, 4d) fc2. Each within
+    its twin's tolerance at the full shapes, with its device time, its
+    twin's, its bound and, for flash, SDPA's; the numbers go under
+    "shards" in each kernel's entry, keyed "tp=2 ..." and "tp=4 ..."."""
+    import torch.nn.functional as F
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.models.whisper.quantization import quantize_weight
+    from stable_ts_tpu_torch.ops import cross_attn, flash_attn, self_attn
+    from stable_ts_tpu_torch.ops import woq_matmul as woq
+    s, ctx, pos, layers, dh = 1500, 256, 200, 8, 64
+
+    def put(name, key, numbers):
+        results[name].setdefault('shards', {})[key] = numbers
+
+    for tp in (2, 4):
+        h = 20 // tp
+        d = h * dh
+        scale = dh ** -0.5
+        for b, t, what in ((8, 1500, f'encoder bf16 (8,1500,{d}), {h} heads'),
+                           (8, 256, f'capture pass bf16 (8,256,{d})x1500, {h} heads')):
+            q = randn(b, t, d, dtype=torch.bfloat16)
+            k, v = randn(b, s, d, dtype=torch.bfloat16), randn(b, s, d, dtype=torch.bfloat16)
+            got = flash_attn.flash_attention(q, k, v, h, scale)
+            ref = flash_attn.flash_attention_ref(q, k, v, h, scale)
+            torch.cuda.synchronize()
+            err = check('flash_attn', got, ref, 2e-2, f'tp={tp} {what}')
+            qh, kh, vh = (a.view(b, -1, h, dh).transpose(1, 2) for a in (q, k, v))
+            ms, plain, lib = (device_ms(fn, iters=10) for fn in (
+                lambda: flash_attn.flash_attention(q, k, v, h, scale),
+                lambda: flash_attn.flash_attention_ref(q, k, v, h, scale),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)))
+            numbers = entry(err, ms, plain, nbytes(q, k, v, q), 4 * b * t * s * d, 'bf16',
+                            lib)
+            log(f'[kernel] flash_attn tp={tp} {what}: device kernel {ms:.4f} ms, twin '
+                f'{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms; bound '
+                f'{numbers["bound_ms"]:.4f} ms ({numbers["bound_by"]})')
+            put('flash_attn', f'tp={tp} {what}', numbers)
+            del q, k, v, got, ref
+
+        rows = 8
+        kc, ks = quantize_rows(randn(rows, ctx, d))
+        vc, vs = quantize_rows(randn(rows, ctx, d))
+        q = randn(rows, d) * scale
+        args = (q, kc, vc, ks, vs, pos, h)
+        what = f'int8 cache (8,256,{d}) pos 200, 8 rows, {h} heads'
+        got = self_attn.self_attn_decode(*args)
+        ref = self_attn.self_attn_decode_ref(*args)
+        torch.cuda.synchronize()
+        err = check('self_attn_decode', got, ref, 1e-4, f'tp={tp} {what}')
+        ms = device_ms(lambda: self_attn.self_attn_decode(*args), iters=200)
+        plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args), iters=200)
+        numbers = entry(err, ms, plain, 2 * rows * (pos + 1) * (d + 4) + nbytes(q, got),
+                        4 * rows * (pos + 1) * d, 'f32')
+        log(f'[kernel] self_attn_decode tp={tp} {what}: device kernel {ms:.4f} ms, twin '
+            f'{plain:.4f} ms, bound {numbers["bound_ms"]:.5f} ms')
+        put('self_attn_decode', f'tp={tp} {what}', numbers)
+
+        for windows, g, name in ((8, 1, 'cross_attn_decode'),
+                                 (4, 5, 'cross_attn_decode_group')):
+            kv, sc = quantize_rows(randn(layers, windows, 2, s, d))
+            q = randn(windows * g, d) * scale
+            args = (q, kv, sc, 7, s, h)
+            ref_args = (q, kv[7, :, 0], kv[7, :, 1], sc[7, :, 0], sc[7, :, 1], s, h, g)
+            what = f'g={g} int8 kv ({layers},{windows},2,1500,{d}), {windows * g} rows, {h} heads'
+            got = cross_attn.cross_attn_decode(*args, q_per_kv=g)
+            ref = cross_attn.cross_attn_decode_ref(*ref_args)
+            torch.cuda.synchronize()
+            err = check(name, got, ref, 1e-3, f'tp={tp} {what}')
+            ms = device_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g), iters=200)
+            plain = device_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=50)
+            numbers = entry(err, ms, plain, nbytes(kv[7], sc[7], q, got),
+                            4 * windows * g * s * d, 'bf16')
+            log(f'[kernel] {name} tp={tp} {what}: device kernel {ms:.4f} ms, twin '
+                f'{plain:.4f} ms, bound {numbers["bound_ms"]:.5f} ms')
+            put(name, f'tp={tp} {what}', numbers)
+            del kv, sc
+
+        rows, g = 20, 5
+        kc, ks = quantize_rows(randn(rows, ctx, d))
+        vc, vs = quantize_rows(randn(rows, ctx, d))
+        anc = torch.randint(0, g, (rows, ctx), generator=gen, device='cuda',
+                            dtype=torch.int32)
+        anc[:, pos] = torch.arange(rows, device='cuda', dtype=torch.int32) % g
+        q = randn(rows, d) * scale
+        args = (q, kc, vc, ks, vs, pos, h)
+        what = f'int8 cache (20,256,{d}) pos 200, 4 windows x 5 beams, {h} heads'
+        got = self_attn.self_attn_decode(*args, anc=anc, q_per_kv=g)
+        ref = self_attn.self_attn_decode_ref(*args, anc=anc, q_per_kv=g)
+        torch.cuda.synchronize()
+        err = check('self_attn_decode_beam', got, ref, 1e-4, f'tp={tp} {what}')
+        ms = device_ms(lambda: self_attn.self_attn_decode(*args, anc=anc, q_per_kv=g),
+                       iters=200)
+        plain = device_ms(lambda: self_attn.self_attn_decode_ref(*args, anc=anc, q_per_kv=g),
+                          iters=50)
+        reached = sum(len(set((anc[w * g:(w + 1) * g, j] + w * g).tolist()))
+                      for w in range(rows // g) for j in range(pos + 1))
+        numbers = entry(err, ms, plain, 2 * reached * (d + 4) + nbytes(anc[:, :pos + 1], q, got),
+                        4 * rows * (pos + 1) * d, 'f32')
+        log(f'[kernel] self_attn_decode_beam tp={tp} {what}: device kernel {ms:.4f} ms, twin '
+            f'{plain:.4f} ms, bound {numbers["bound_ms"]:.5f} ms')
+        put('self_attn_decode_beam', f'tp={tp} {what}', numbers)
+
+        for windows, g, name in ((2, 1, 'cross_attn_decode_int4'),
+                                 (1, 5, 'cross_attn_decode_group_int4')):
+            vals, sc = quantize_rows(randn(layers, windows, 2, s, d), bits=4)
+            kv = cross_attn.pack_int4(vals)
+            q = randn(windows * g, d) * scale
+            args = (q, kv, sc, 7, s, h)
+            ref_args = (q, vals[7, :, 0], vals[7, :, 1], sc[7, :, 0], sc[7, :, 1], s, h, g)
+            what = (f'g={g} int4 kv ({layers},{windows},2,1500,{d}) packed, '
+                    f'{windows * g} rows, {h} heads')
+            got = cross_attn.cross_attn_decode(*args, q_per_kv=g, bits=4)
+            ref = cross_attn.cross_attn_decode_ref(*ref_args)
+            torch.cuda.synchronize()
+            err = check(name, got, ref, 1e-3, f'tp={tp} {what}')
+            ms = device_ms(lambda: cross_attn.cross_attn_decode(*args, q_per_kv=g, bits=4),
+                           iters=200)
+            plain = device_ms(lambda: cross_attn.cross_attn_decode_ref(*ref_args), iters=50)
+            numbers = entry(err, ms, plain, nbytes(kv[7], sc[7], q, got),
+                            4 * windows * g * s * d, 'bf16')
+            log(f'[kernel] {name} tp={tp} {what}: device kernel {ms:.4f} ms, twin '
+                f'{plain:.4f} ms, bound {numbers["bound_ms"]:.5f} ms')
+            put(name, f'tp={tp} {what}', numbers)
+
+        for n, k, lin in ((3 * d, 1280, 'fused qkv'), (1280, d, 'out'),
+                          (4 * d, 1280, 'fc1'), (1280, 4 * d, 'fc2')):
+            qw, wscale = quantize_weight(randn(n, k) * 0.02)
+            for m in (8, 12000):
+                x = randn(m, k, dtype=torch.bfloat16)
+                got = woq._woq_cuda(x, qw, wscale)
+                ref = woq.woq_matmul_ref(x, qw, wscale)
+                torch.cuda.synchronize()
+                what = f'{lin} M={m} (K,N)=({k},{n}) bf16 x'
+                err = check('woq_matmul', got, ref, 1e-5, f'tp={tp} {what}')
+                iters = 200 if m <= 8 else 20
+                ms = device_ms(lambda: woq._woq_cuda(x, qw, wscale), iters=iters)
+                plain = device_ms(lambda: woq.woq_matmul_ref(x, qw, wscale), iters=iters)
+                numbers = entry(err, ms, plain, nbytes(x, qw, wscale, got), 2 * m * n * k,
+                                'bf16')
+                log(f'[kernel] woq_matmul tp={tp} {what}: device kernel {ms:.4f} ms, twin '
+                    f'{plain:.4f} ms, bound {numbers["bound_ms"]:.4f} ms '
+                    f'({numbers["bound_by"]})')
+                put('woq_matmul', f'tp={tp} {what}', numbers)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _same_words(label: str, got, ref) -> None:
+    """Fail unless two results have the same text, words, word times,
+    probabilities and word-level SRT bytes."""
+    gw, rw = got.all_words(), ref.all_words()
+    same = (got.text == ref.text and len(gw) == len(rw)
+            and all((a.word, a.start, a.end, a.probability)
+                    == (b.word, b.start, b.end, b.probability) for a, b in zip(gw, rw))
+            and got.to_srt_vtt(word_level=True) == ref.to_srt_vtt(word_level=True))
+    if not same:
+        raise AssertionError(f'{label}: the result differs from the unsharded one')
+
+
+def mesh_one(torch, dims, ranks, heads, model, audio, long_audio, batched_reqs,
+             aligned_60, segments) -> dict:
+    """A world of one rank over NCCL on the card (``init_process_group``
+    at world size 1) and a large-v3 bf16 model (seed 0, the weights of
+    ``model``) sharded on its (dp 1, tp 1) mesh: the batched greedy 300 s,
+    the 60-s ``align_words`` and a refine of its result, each with the
+    launch counts reset and read, each bit for bit the unsharded run's in
+    this process. The mesh branches run (the batch split and gathers, the
+    decode's out-of-memory agreement over NCCL); a tp group of one rank
+    reduces nothing, as a reduction over one rank is the identity. Walls
+    are logged beside the unsharded ones. Returns the launches and the
+    mesh; the group stays up for :func:`mesh_one_dq_and_train`."""
+    from stable_ts_tpu_torch.loaders import WhisperTorch
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.parallel import build_mesh, distributed_init
+    distributed_init(f'127.0.0.1:{_free_port()}', 1, 0, backend='nccl')
+    mesh = build_mesh(tp=1, devices='cuda')
+    log(f'[mesh one] world of 1 over NCCL: {mesh}')
+    sharded = WhisperTorch(dims, init_params(dims, seed=0, dtype=torch.bfloat16,
+                                             device='cuda'),
+                           device='cuda', name=MODEL + '-mesh', ranks=ranks,
+                           alignment_heads=heads).shard(mesh)
+    counts, reqs = {}, {}
+    needed = ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
+              'dtw_cost')
+    for name, n in batched_paths(torch, [(
+            'mesh one batched greedy', sharded, long_audio,
+            dict(batch_size=8, language='en', temperature=0), needed)], reqs).items():
+        counts[name] = counts.get(name, 0) + n
+    ref = batched_reqs['batched greedy']
+    _same_words('mesh one batched greedy', reqs['mesh one batched greedy']['result'],
+                ref['result'])
+    log(f'[mesh one] batched greedy 300 s: bit for bit the unsharded result; wall '
+        f'{reqs["mesh one batched greedy"]["wall"]:.3f} s sharded against '
+        f'{ref["wall"]:.3f} s unsharded')
+    clip = audio[:60 * SR]
+    got, launches, summary = run_align(
+        torch, 'mesh one align_words', f'60 s, {len(segments)} segments, parallel',
+        lambda: sharded.align_words(clip, [dict(s) for s in segments], language='en',
+                                    verbose=None),
+        60.0, exact={'flash_attn': 64, 'dtw_cost': 1})
+    _same_words('mesh one align_words', got, aligned_60)
+    for name, n in launches.items():
+        counts[name] = counts.get(name, 0) + n
+    walls = {}
+    for label, m in (('unsharded', model), ('sharded', sharded)):
+        res, launches, summary = run_align(
+            torch, f'mesh one refine ({label})', '60 s, the align_words result, '
+            'prob_threshold=0.0', lambda: m.refine(clip, aligned_60, inplace=False,
+                                                   prob_threshold=0.0, verbose=None),
+            60.0, needed=('flash_attn',))
+        walls[label] = (res, summary['wall'])
+        if label == 'sharded':
+            for name, n in launches.items():
+                counts[name] = counts.get(name, 0) + n
+    _same_words('mesh one refine', walls['sharded'][0], walls['unsharded'][0])
+    log(f'[mesh one] align_words and refine: bit for bit the unsharded results; refine '
+        f'wall {walls["sharded"][1]:.3f} s sharded against {walls["unsharded"][1]:.3f} s')
+    del sharded
+    return counts, mesh
+
+
+def mesh_one_dq_and_train(torch, dims, ranks, heads, mesh, long_audio,
+                          batched_reqs, audio) -> dict:
+    """On the world of one: the batched dq request (int8 weights quantized
+    on the card, int4 cross K/V) on a freshly quantized sharded model,
+    bit for bit the unsharded 'batched dq'; then two train steps (batch 2
+    windows, 64 tokens) on a sharded and on an unsharded fresh bf16
+    model, the same losses and weights bit for bit. Ends the group.
+    Returns the launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from stable_ts_tpu_torch import _build
+    from stable_ts_tpu_torch.loaders import WhisperTorch
+    from stable_ts_tpu_torch.models.whisper import train
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.ops.mel import log_mel_spectrogram
+    counts, reqs = {}, {}
+    dq = WhisperTorch(dims, init_params(dims, seed=0, dtype=torch.bfloat16, device='cuda'),
+                      device='cuda', name=MODEL + '-mesh-dq', ranks=ranks,
+                      alignment_heads=heads, dq=True).shard(mesh)
+    for name, n in batched_paths(torch, [(
+            'mesh one batched dq', dq, long_audio[210 * SR:270 * SR],
+            dict(batch_size=2, language='en', temperature=0, kv_quant=4),
+            ('flash_attn', 'woq_matmul', 'cross_attn_decode_int4', 'logit_epilogue',
+             'self_attn_decode', 'dtw_cost'))], reqs).items():
+        counts[name] = counts.get(name, 0) + n
+    ref = batched_reqs['batched dq']
+    _same_words('mesh one batched dq', reqs['mesh one batched dq']['result'], ref['result'])
+    log(f'[mesh one] batched dq 60 s: bit for bit the unsharded result; wall '
+        f'{reqs["mesh one batched dq"]["wall"]:.3f} s sharded against {ref["wall"]:.3f} s')
+    del dq
+    torch.cuda.empty_cache()
+
+    clips = np.stack([audio[:30 * SR], audio[30 * SR:60 * SR]])
+    mel = log_mel_spectrogram(clips, n_mels=dims.n_mels, device='cuda')
+    tokens = np.random.default_rng(5).integers(0, dims.n_vocab, (2, 64))
+    init_opt_state, train_step = train.make_train_step(dims)
+    out = {}
+    for label in ('unsharded', 'sharded'):
+        model = init_params(dims, seed=0, dtype=torch.bfloat16)
+        if label == 'sharded':
+            from stable_ts_tpu_torch.parallel import shard_params
+            shard_params(model, mesh, dims)
+        opt = init_opt_state(model)
+        losses, walls = [], []
+        for _ in range(2):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(train_step(model, opt, mel, tokens).item())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = _build.launch_counts()
+            if any(launches.get(k, 0) != 64 for k in ('flash_attn', 'flash_attn_bwd_dkv',
+                                                       'flash_attn_bwd_dq')):
+                raise AssertionError(f'mesh one train ({label}): launches {launches}')
+            if label == 'sharded':
+                for name, n in launches.items():
+                    counts[name] = counts.get(name, 0) + n
+        out[label] = (losses, walls, {n: p.detach().clone()
+                                      for n, p in model.named_parameters()})
+        del model, opt
+        torch.cuda.empty_cache()
+    (lu, wu, pu), (ls, ws, ps) = out['unsharded'], out['sharded']
+    if lu != ls or any(not torch.equal(pu[n], ps[n]) for n in pu):
+        raise AssertionError(f'mesh one train: losses {ls} != {lu} or weights differ')
+    log(f'[mesh one] two train steps: losses {ls} and every weight bit for bit the '
+        f'unsharded steps\'; walls {[round(w, 3) for w in ws]} s sharded against '
+        f'{[round(w, 3) for w in wu]} s')
+    del out, pu, ps
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return counts
+
+
+# the two-rank phase: large-v3 at full width with its depth cut for the train
+# steps (four layers a stack: four f32 replicas of the optimizer state at dp = 2
+# would not fit beside each other on one card)
+TRAIN_LAYERS = 4
+
+
+# a decode of the two-rank phase stops after 48 tokens a window: every step
+# there costs about 160 gloo all-reduces through the host at tp = 2
+TWO_RANK_SAMPLE_LEN = 48
+
+
+def _summary(result) -> dict:
+    """What the two-rank phase compares of a result: its text, its words
+    (text, start, end, probability) and its word-level SRT."""
+    return dict(text=result.text, srt=result.to_srt_vtt(word_level=True),
+                words=[(w.word, w.start, w.end, w.probability)
+                       for w in result.all_words()])
+
+
+def _two_rank_requests(torch, model, audio, dtype_label: str):
+    """The requests of the two-rank phase on ``model``, each with the
+    launch counts reset before it and read after it: transcribe_batched
+    greedy 60 s (one group of 2 windows, 48 tokens a window); with f32
+    weights also ``align_words`` of 20 s (two 10-s segments) and a refine
+    of its result (``prob_threshold=0.0``). Returns {name: (summary,
+    wall, launches)}."""
+    from stable_ts_tpu_torch import _build
+    out, aligned = {}, []
+    requests = [(f'greedy 60 s {dtype_label}', lambda: model.transcribe_batched(
+        audio[:60 * SR], batch_size=2, language='en', temperature=0,
+        sample_len=TWO_RANK_SAMPLE_LEN, verbose=None))]
+    if dtype_label == 'f32':
+        clip = audio[:20 * SR]
+        requests += [
+            ('align_words 20 s f32', lambda: aligned.append(model.align_words(
+                clip, [dict(s) for s in align_words_grid(20.0)], language='en',
+                verbose=None)) or aligned[0]),
+            ('refine 20 s f32', lambda: model.refine(
+                clip, aligned[0], inplace=False, prob_threshold=0.0, verbose=None))]
+    for name, fn in requests:
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = (_summary(result), time.perf_counter() - t0, _build.launch_counts())
+    return out
+
+
+def _train_losses(torch, dims, mesh, audio, steps: int = 2):
+    """Losses of ``steps`` train steps on the cut large-v3 (f32, seed 2),
+    batch 2 windows and 64 tokens, sharded on ``mesh`` when given."""
+    import numpy as np
+    from stable_ts_tpu_torch.models.whisper import train
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.ops.mel import log_mel_spectrogram
+    clips = np.stack([audio[:30 * SR], audio[30 * SR:60 * SR]])
+    mel = log_mel_spectrogram(clips, n_mels=dims.n_mels, device='cuda')
+    tokens = np.random.default_rng(5).integers(0, dims.n_vocab, (2, 64))
+    model = init_params(dims, seed=2, dtype=torch.float32)
+    if mesh is not None:
+        from stable_ts_tpu_torch.parallel import shard_params
+        shard_params(model, mesh, dims)
+    init_opt_state, train_step = train.make_train_step(dims)
+    opt = init_opt_state(model)
+    losses = [train_step(model, opt, mel, tokens).item() for _ in range(steps)]
+    return losses
+
+
+def _rank_main(rank: int, port: int, out_dir: str, heads) -> None:
+    """One of the two ranks of the two-rank phase (spawned; both on
+    cuda:0, gloo collectives on CUDA tensors): for (dp 1, tp 2) and
+    (dp 2, tp 1), the requests of :func:`_two_rank_requests` on large-v3
+    f32 and bf16 weights (seed 0), and the cut model's train steps.
+    Writes its results to ``out_dir/rank<rank>.pkl``."""
+    import pickle
+    import torch
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from stable_ts_tpu_torch import _build
+    from stable_ts_tpu_torch.audio.synth import synth_speech_like
+    from stable_ts_tpu_torch.loaders import WhisperTorch
+    from stable_ts_tpu_torch.models.whisper.dims import OPENAI_MODEL_DIMS, ModelDimensions
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    from stable_ts_tpu_torch.parallel import build_mesh, distributed_init
+    _build.lib()
+    distributed_init(f'127.0.0.1:{port}', 2, rank, backend='gloo')
+    dims = ModelDimensions(**OPENAI_MODEL_DIMS[MODEL])
+    train_dims = ModelDimensions(**{**vars(dims), 'n_audio_layer': TRAIN_LAYERS,
+                                    'n_text_layer': TRAIN_LAYERS})
+    ranks = synthetic_ranks()
+    audio = synth_speech_like(155.0)
+    out = {}
+    for tp in (2, 1):
+        mesh = build_mesh(tp=tp, devices='cuda')
+        key = f'dp {mesh["dp"].size()} x tp {mesh["tp"].size()}'
+        torch.cuda.reset_peak_memory_stats()
+        reqs = {}
+        for dtype, label in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+            model = WhisperTorch(dims, init_params(dims, seed=0, dtype=dtype,
+                                                   device='cuda'),
+                                 device='cuda', name=MODEL, ranks=ranks,
+                                 alignment_heads=heads).shard(mesh)
+            reqs.update(_two_rank_requests(torch, model, audio, label))
+            del model
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        losses = _train_losses(torch, train_dims, mesh, audio)
+        out[key] = dict(requests=reqs, losses=losses, train_s=time.perf_counter() - t0,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'wb') as f:
+        pickle.dump(out, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def synthetic_ranks() -> dict:
+    """The synthetic rank table the size of the multilingual vocabulary
+    (bench.py's)."""
+    ranks = {bytes([b]): b for b in range(256)}
+    i = 256
+    while len(ranks) < 50257:
+        ranks[b'\x00' + i.to_bytes(3, 'big')] = i
+        i += 1
+    return ranks
+
+
+def mesh_two(torch, heads) -> dict:
+    """Two ranks on the one card over gloo (two spawned processes, both on
+    cuda:0; NCCL refuses two ranks on one GPU), the only way a tp or dp
+    split runs on a one-GPU machine. This process first runs the
+    unsharded references of :func:`_two_rank_requests` (f32 and bf16) and
+    the cut model's two train steps. Then for (dp 1, tp 2) and (dp 2, tp
+    1) each rank must launch the kernels of each request and give, in
+    f32, the reference's text and words with every start within 0.021 s
+    and train losses within 1e-4 relative; the bf16 greedy's differences
+    are logged, not gated. Both ranks must return the same results. Logs
+    each request's wall on each rank (the ranks share the card: not a
+    speed-up) and each rank's peak device memory. Returns the launches of
+    rank 0."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    from stable_ts_tpu_torch.audio.synth import synth_speech_like
+    from stable_ts_tpu_torch.loaders import WhisperTorch
+    from stable_ts_tpu_torch.models.whisper.dims import OPENAI_MODEL_DIMS, ModelDimensions
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    dims = ModelDimensions(**OPENAI_MODEL_DIMS[MODEL])
+    train_dims = ModelDimensions(**{**vars(dims), 'n_audio_layer': TRAIN_LAYERS,
+                                    'n_text_layer': TRAIN_LAYERS})
+    audio = synth_speech_like(155.0)
+    ranks = synthetic_ranks()
+    refs = {}
+    for dtype, label in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+        model = WhisperTorch(dims, init_params(dims, seed=0, dtype=dtype, device='cuda'),
+                             device='cuda', name=MODEL, ranks=ranks, alignment_heads=heads)
+        refs.update(_two_rank_requests(torch, model, audio, label))
+        del model
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref_losses = _train_losses(torch, train_dims, None, audio)
+    train_wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log('[mesh two] unsharded: ' + ', '.join(f'{name} {wall:.3f} s'
+                                             for name, (_, wall, _) in refs.items())
+        + f'; the cut model ({TRAIN_LAYERS} + {TRAIN_LAYERS} layers, f32) two train '
+        f'steps {train_wall:.3f} s, losses {ref_losses}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_rank_main, args=(_free_port(), tmp, heads), nprocs=2, join=True)
+        log(f'[mesh two] two ranks spawned and joined in {time.perf_counter() - t0:.1f} s')
+        got = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f'rank{rank}.pkl'), 'rb') as f:
+                got.append(pickle.load(f))
+    counts = {}
+    for key in got[0]:
+        r0, r1 = got[0][key], got[1][key]
+        log(f'[mesh two] {key}: walls rank 0 / rank 1 (unsharded): ' + ', '.join(
+            f'{name} {r0["requests"][name][1]:.3f} / {r1["requests"][name][1]:.3f} s '
+            f'({refs[name][1]:.3f})' for name in r0['requests'])
+            + f'; train {r0["train_s"]:.3f} / {r1["train_s"]:.3f} s ({train_wall:.3f}); '
+            f'peak device memory {r0["peak_gb"]:.2f} / {r1["peak_gb"]:.2f} GB')
+        if ({k: v[0] for k, v in r0['requests'].items()}
+                != {k: v[0] for k, v in r1['requests'].items()}
+                or r0['losses'] != r1['losses']):
+            raise AssertionError(f'mesh two {key}: the ranks returned different results')
+        for name, (res, wall, launches) in r0['requests'].items():
+            ref = refs[name][0]
+            need = (('flash_attn', 'self_attn_decode', 'cross_attn_decode',
+                     'logit_epilogue', 'dtw_cost') if name.startswith('greedy')
+                    else ('flash_attn', 'dtw_cost') if name.startswith('align')
+                    else ('flash_attn',))
+            missing = [k for k in need if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f'mesh two {key} {name}: kernels not launched: {missing}')
+            for k, n in launches.items():
+                counts[k] = counts.get(k, 0) + n
+            same_text = (res['text'] == ref['text']
+                         and [w[0] for w in res['words']] == [w[0] for w in ref['words']])
+            diff = max((abs(a[1] - b[1]) for a, b in zip(res['words'], ref['words'])),
+                       default=0.0)
+            log(f'[mesh two] {key} {name}: text and words equal to the unsharded run\'s '
+                f'{same_text}, {len(res["words"])} against {len(ref["words"])} words, '
+                f'largest start difference {diff:.3f} s, SRT bytes equal '
+                f'{res["srt"] == ref["srt"]}; launches {launches}')
+            if name.endswith('f32') and (not same_text or diff > 0.021):
+                raise AssertionError(f'mesh two {key} {name}: the f32 result differs from '
+                                     f'the unsharded one')
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0['losses'], ref_losses))
+        log(f'[mesh two] {key}: train losses {r0["losses"]}, relative difference to the '
+            f'unsharded {rel:.2e}')
+        if rel > 1e-4:
+            raise AssertionError(f'mesh two {key}: train losses {r0["losses"]} against '
+                                 f'{ref_losses} (relative {rel:.2e} > 1e-4)')
+    return counts
 
 if __name__ == '__main__':
     sys.exit(main())

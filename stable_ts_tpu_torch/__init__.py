@@ -17,7 +17,9 @@ backward, self- and cross-attention decode with their beam and
 window-group entries, the greedy logit epilogue, the DTW cost, the int8
 weight-only matmul of ``dq`` models, the streamed vocab projection).
 ``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``
-(``profiling.py``). The ``stable-ts-tpu-torch`` command (``cli.py``, or
+(``profiling.py``). ``model.shard()`` spreads a model over several GPUs,
+one process each (``parallel/``: a (dp, tp) mesh with Megatron tensor
+parallelism over tp and the batches' rows over dp). The ``stable-ts-tpu-torch`` command (``cli.py``, or
 ``python -m stable_ts_tpu_torch``) drives all of it from the shell, and a
 faster-whisper model plugs into the same stabilization, alignment and
 refinement (``backends/``). The framework-free host code (audio loading,

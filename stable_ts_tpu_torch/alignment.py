@@ -198,9 +198,9 @@ def _whisper_alignment_batch_func(model, tokenizer, options: AllOptions) -> Call
     one DTW launch and one download serve every segment; otherwise the
     capture is downloaded and each segment goes through
     ``add_word_timestamps(precomputed=...)``, the sequential path's host
-    logic. The JAX package shards the rows over its mesh here
-    (``model.shard_batch``); the port has no mesh yet (ROADMAP.md), so the
-    rows go in as they are."""
+    logic. On a mesh each rank takes its rows (``model.shard_batch``, as
+    the JAX package does here) and the token probabilities, the DTW costs
+    or the capture are gathered over dp before they go to the host."""
     from .batched import _dtw_cost_batched, _next_token_probs
     from .models.whisper.timing import (add_word_timestamps,
                                         build_head_capture_table,
@@ -241,8 +241,10 @@ def _whisper_alignment_batch_func(model, tokenizer, options: AllOptions) -> Call
             tok_batch[i, :len(row)] = row
 
         device = model.device
-        audio_in = torch.from_numpy(audio_batch).to(device)
-        tokens_in = torch.from_numpy(tok_batch).to(device)
+        # dp-split on a mesh (segments are independent); every consumer
+        # below indexes < len(metas) of the gathered rows
+        audio_in, _ = model.shard_batch(audio_batch)
+        tokens_in, _ = model.shard_batch(tok_batch)
         mel_batch = log_mel_windowed(audio_in, model.dims.n_mels, N_FRAMES)
         xa = encoder_apply(model.params.encoder, mel_batch)
         logits, qks = decoder_apply(model.params.decoder, tokens_in, xa,
@@ -257,20 +259,20 @@ def _whisper_alignment_batch_func(model, tokenizer, options: AllOptions) -> Call
             layers = torch.tensor([l for l, _ in capture_slots], device=device)
             cols = torch.tensor([s for _, s in capture_slots], device=device)
             sel = qks[layers, :, cols]                  # (n_sel, B, T, 1500)
-            pad_b = sel.shape[1]
             qk_lens = [round(min(samples, N_SAMPLES) / N_SAMPLES_PER_TOKEN)
                        or 1 for _, _, samples in metas]
             row_counts = [len(text_tokens) + 1
                           for _, text_tokens, _ in metas]
-            qk_lens_in = torch.tensor(
-                qk_lens + [1] * (pad_b - len(metas)), device=device)
-            rows_in = torch.tensor(
-                row_counts + [1] * (pad_b - len(metas)), device=device)
+            qk_lens_in, _ = model.shard_batch(np.asarray(
+                qk_lens + [1] * (pad_rows - len(metas))))
+            rows_in, _ = model.shard_batch(np.asarray(
+                row_counts + [1] * (pad_rows - len(metas))))
             mats = legacy_weights_batched(sel, qk_lens_in, rows_in, sot_len,
                                           1.0, 7)
-            cost = _dtw_cost_batched(-mats)[:len(metas)].cpu().numpy()
+            cost = model.gather_batch(
+                _dtw_cost_batched(-mats))[:len(metas)].cpu().numpy()
             jumps = dtw_jumps_batched(cost, row_counts, qk_lens)
-            tok_probs = tok_probs_dev.cpu().numpy()
+            tok_probs = model.gather_batch(tok_probs_dev).cpu().numpy()
             outputs = []
             for i, (word_tokens, text_tokens, _) in enumerate(metas):
                 n_text = len(text_tokens)
@@ -281,9 +283,10 @@ def _whisper_alignment_batch_func(model, tokenizer, options: AllOptions) -> Call
                     jump_times, probs, tokenizer))
             return outputs
 
-        qks_host = qks.cpu()        # dynamic / 'new': needs every head
+        # dynamic / 'new': needs every head
+        qks_host = model.gather_batch(qks, dim=1).cpu()
         del qks
-        tok_probs = tok_probs_dev.cpu().numpy()
+        tok_probs = model.gather_batch(tok_probs_dev).cpu().numpy()
         outputs = []
         for i, (word_tokens, text_tokens, segment_samples) in enumerate(metas):
             n_text = len(text_tokens)
@@ -430,6 +433,14 @@ def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _rows_in(model, x: np.ndarray) -> torch.Tensor:
+    """A refine round's host batch on the model's device: this rank's rows
+    on a mesh (``model.shard_batch``), else :func:`_upload`."""
+    if model.mesh is not None:
+        return model.shard_batch(x)[0]
+    return _upload(x, model.device)
+
+
 def _whisper_refinement_func(model, tokenizer) -> Callable:
     """(audio[2, T], tokens) -> token probs (2, n_tokens, vocab < eot), one
     probe at a time: the two muted rows' mel on the model's device, the
@@ -551,9 +562,10 @@ def _whisper_refinement_batch_func(model, tokenizer) -> Callable:
     once a refine step (a new ``epoch``) and each round uploads only the
     mute intervals and runs only the spans still holding live words;
     ``launch`` queues a round and returns a handle without waiting, and
-    ``collect`` downloads it. The JAX package shards the rows over its mesh
-    here (``model.shard_batch``); the port has no mesh yet (ROADMAP.md), so
-    the rows go to the model's device as they are."""
+    ``collect`` downloads it. On a mesh each rank runs its rows of a round
+    (``model.shard_batch``, where the JAX package calls it) and the round's
+    stacked result is gathered over dp when it is launched; the clean
+    span audio stays whole on every rank."""
     sot_seq = list(tokenizer.sot_sequence)
     sot_len = len(sot_seq)
     device = model.device
@@ -610,6 +622,12 @@ def _whisper_refinement_batch_func(model, tokenizer) -> Callable:
         # encoder
         slot_list = [state['map'][id(p.clean)] for p in probes]
         a_b = _pow2(len(probes))
+        if model.mesh is not None:
+            # the muted rows of span i are rows 2i and 2i + 1: the span
+            # bucket itself is a dp multiple, so that a rank's spans and
+            # their rows split alike (JAX: alignment.py:715-721)
+            dp = model.mesh['dp'].size()
+            a_b = max(a_b, dp) if dp & (dp - 1) == 0 else int(np.lcm(a_b, dp))
         lo = np.zeros((2 * a_b, w_b), np.int32)
         hi = np.zeros((2 * a_b, w_b), np.int32)
         tok_batch = np.full((2 * a_b, max_len), tokenizer.eot, np.int64)
@@ -623,10 +641,11 @@ def _whisper_refinement_batch_func(model, tokenizer) -> Callable:
         slots = np.asarray(slot_list + [slot_list[-1]] * (a_b - len(probes)),
                            np.int64)
         stacked = _refine_round_fused(
-            model, state['clean'], state['t_real'], _upload(slots, device),
-            _upload(lo, device), _upload(hi, device),
-            _upload(tok_batch, device), tokenizer.eot)
-        return stacked, [2 * i for i in range(len(probes))], lengths
+            model, state['clean'], state['t_real'], _rows_in(model, slots),
+            _rows_in(model, lo), _rows_in(model, hi),
+            _rows_in(model, tok_batch), tokenizer.eot)
+        return (model.gather_batch(stacked, dim=1),
+                [2 * i for i in range(len(probes))], lengths)
 
     def collect(handle):
         """Download a launched round's results (one download) -> reply
@@ -692,10 +711,11 @@ def _whisper_refinement_batch_func(model, tokenizer) -> Callable:
             row_starts.append(r)
             tok_batch[r:r + a.shape[0], :len(row)] = row
             r += a.shape[0]
-        tokens_in = _upload(tok_batch, device)
-        mel_batch = _refine_mel_batch(_upload(audio_batch, device),
-                                      _upload(frames, device), model.dims.n_mels)
-        return (_probs_and_ranks(model, mel_batch, tokens_in, tokenizer.eot),
+        tokens_in = _rows_in(model, tok_batch)
+        mel_batch = _refine_mel_batch(_rows_in(model, audio_batch),
+                                      _rows_in(model, frames), model.dims.n_mels)
+        return (model.gather_batch(_probs_and_ranks(
+                    model, mel_batch, tokens_in, tokenizer.eot), dim=1),
                 row_starts, lengths)
 
     def batch_func(requests):

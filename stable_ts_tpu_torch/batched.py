@@ -27,10 +27,19 @@ traceback over the downloaded costs (``ops/dtw.py:dtw_jumps_batched``;
 JAX walks it on the device). On the CPU the same code runs with no
 streams and no pinned memory: it branches on the model's device.
 
-JAX's ``shard_batch`` (a dp mesh over the window axis) waits for the
-port's multi-GPU work (ROADMAP §1 item 8): this driver has no mesh branch,
-and JAX's repairs for mesh-padded batches (batched.py:617-623, :684-688)
-have nothing to repair here.
+On a (dp, tp) mesh (``model.shard``) every rank runs this driver on the
+same audio. The group's encode and decode split the windows over dp inside
+``model.embed_audio`` and ``model.decode_launch`` (JAX calls
+``shard_batch`` before them, batched.py:589, :680) and hand back the
+group's global features and results, so this driver never sees a
+dp-padded batch and JAX's repairs for one (batched.py:617-623, :684-688)
+have no counterpart. The word-timing pass calls ``model.shard_batch`` on
+its rows as JAX does (batched.py:972-973), scores this rank's windows, and
+gathers the token probabilities and the DTW costs over dp before they go
+to the host. Every rank issues these collectives in the same host order,
+on either stream. An out-of-memory error in a decode on any rank raises
+on every rank (``model.decode_launch`` agrees on it), so all of them halve
+the batch together.
 """
 import contextlib
 import gc
@@ -50,6 +59,7 @@ from .defaults import (get_append_punctuations, get_min_word_dur,
 from .models.whisper.decoding import DecodingOptions
 from .ops.dtw import dtw_cost, dtw_jumps_batched
 from .ops.mel import log_mel_spectrogram
+from .parallel.mesh import batch_rows
 from .profiling import traced
 from .result import Segment, WhisperResult
 from .stabilization import NonSpeechPredictor
@@ -550,6 +560,8 @@ def _transcribe_batched_impl(
         _t0 = time.perf_counter()
         wins = wins.to(device, non_blocking=True)
         mels = log_mel_spectrogram(wins, model.dims.n_mels)[..., :N_FRAMES]
+        # on a mesh: each rank encodes its rows; the features come back
+        # whole (JAX: shard_batch(mels), batched.py:589)
         grp.features = model.embed_audio(mels)
         _hp('host_upload_dispatch', _t0)
         if tokenizer is None:
@@ -627,6 +639,8 @@ def _transcribe_batched_impl(
             retry_rows = min(retry_rows, batch_size)
             rows = pending_idx + [pending_idx[-1]] * (retry_rows
                                                       - len(pending_idx))
+            # on a mesh decode_launch splits the rows over dp (JAX:
+            # shard_batch, batched.py:680)
             feats = grp.features[torch.as_tensor(rows, device=device)]
             mask = _group_ts_mask(grp, pending_idx)
             if mask is not None:
@@ -918,32 +932,35 @@ def _launch_word_timing(model, tokenizer, features, metas,
     tok_rows = list(range(len(todo))) + [len(todo) - 1] * pad
     rows_in = row_counts + [1] * pad
     qk_lens_in = max_qk_lens + [1] * pad
+    # on a mesh this rank scores rows [lo, hi) of the padded batch
+    _, lo, hi = batch_rows(batch_size, model.mesh)
 
     device = features.device
     out = dict(prep=prep, todo=todo, sot_len=sot_len,
                max_qk_lens=max_qk_lens, row_counts=row_counts,
                aligner_mode=aligner, dynamic_heads=dynamic_heads,
-               stream=stream, ready=None)
+               stream=stream, ready=None, batch_size=batch_size)
     if stream is not None:
         stream.wait_stream(torch.cuda.current_stream(device))
         features.record_stream(stream)
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
         # every upload before the first kernel: a copy from pageable memory
-        # waits for the stream it is queued on
-        pos_in = torch.as_tensor(pos, device=device)
-        tokens_in = torch.from_numpy(tokens_arr[tok_rows]).to(device)
+        # waits for the stream it is queued on. On a mesh, this rank's rows
+        # (JAX: shard_batch, batched.py:972-973)
+        pos_in, _ = model.shard_batch(np.asarray(pos))
+        tokens_in, _ = model.shard_batch(tokens_arr[tok_rows])
         if capture_slots is not None:
-            lens_in = torch.as_tensor(qk_lens_in, device=device)
-            counts_in = torch.as_tensor(rows_in, device=device)
+            lens_in, _ = model.shard_batch(np.asarray(qk_lens_in))
+            counts_in, _ = model.shard_batch(np.asarray(rows_in))
             slots_in = torch.as_tensor(capture_slots, device=device)
         logits, qks = decoder_apply(model.params.decoder, tokens_in,
                                     features[pos_in], capture_qk=True,
                                     capture_index=capture_index)
         # per-position probability of the realized next token: the only
         # thing the word assembly needs from the logits
-        out['tok_probs'] = _to_host(_next_token_probs(logits, tokens_in,
-                                                      tokenizer.eot))
+        out['tok_probs'] = _to_host(model.gather_batch(_next_token_probs(
+            logits, tokens_in, tokenizer.eot)))
         del logits
         if capture_slots is not None:
             # every window, full or short, takes the batched weights: the
@@ -957,21 +974,29 @@ def _launch_word_timing(model, tokenizer, features, metas,
             # the full capture (dynamic heads, the 'new' aligner, unknown
             # heads): scored one window at a time on the device; the
             # capture never leaves it
-            matrices = [_device_matrix(model, qks, k, max_qk_lens[k],
-                                       row_counts[k], sot_len, None,
+            matrices = [_device_matrix(model, qks, k, max_qk_lens[g],
+                                       row_counts[g], sot_len, None,
                                        dynamic_heads, aligner)
-                        for k in range(len(todo))]
-            matrices += [matrices[-1]] * pad
+                        for k, g in _local_windows(lo, hi, len(todo))]
+            matrices += [matrices[-1]] * (hi - lo - len(matrices))
             mats = torch.stack(matrices)
             del matrices
             if _dynamic_iterations(dynamic_heads, aligner) > 1:
                 out['qks_dev'] = qks  # kept for the refinement passes
-        out['cost'] = _to_host(_dtw_cost_batched(-mats))
+        out['cost'] = _to_host(model.gather_batch(_dtw_cost_batched(-mats)))
         del mats, qks
         if stream is not None:
             out['ready'] = torch.cuda.Event()
             out['ready'].record(stream)
     return out
+
+
+def _local_windows(lo: int, hi: int, n_todo: int):
+    """(local row, window) of the real windows among a rank's rows
+    [lo, hi) of the padded timing batch; a rank holding only padding rows
+    (copies of the last window) scores the last window once."""
+    return [(k, g) for k, g in enumerate(range(lo, hi))
+            if g < n_todo] or [(0, n_todo - 1)]
 
 
 def _dynamic_iterations(dynamic_heads, aligner) -> int:
@@ -1038,18 +1063,20 @@ def _finish_word_timing(model, tokenizer, pending, metas,
                 # midpoints of the previous jumps become the peak targets
                 t_rows = qks.shape[-2] - sot_len - 1
                 matrices = []
-                for k in range(n_todo):
-                    ji = np.pad(jumps_np[k, :row_counts[k]], (0, 1),
-                                constant_values=max_qk_lens[k])
+                _, lo, hi = batch_rows(pending['batch_size'], model.mesh)
+                for k, g in _local_windows(lo, hi, n_todo):
+                    ji = np.pad(jumps_np[g, :row_counts[g]], (0, 1),
+                                constant_values=max_qk_lens[g])
                     peaks = np.zeros(t_rows, np.float32)
-                    peaks[:row_counts[k]] = ji[:-1] + (ji[1:] - ji[:-1]) * 0.5
+                    peaks[:row_counts[g]] = ji[:-1] + (ji[1:] - ji[:-1]) * 0.5
                     matrices.append(_device_matrix(
-                        model, qks, k, max_qk_lens[k], row_counts[k], sot_len,
+                        model, qks, k, max_qk_lens[g], row_counts[g], sot_len,
                         torch.from_numpy(peaks).to(qks.device),
                         pending['dynamic_heads'], pending['aligner_mode']))
                 # pad to the device batch: one DTW launch a pass
-                matrices += [matrices[-1]] * (qks.shape[1] - n_todo)
-                cost = _dtw_cost_batched(-torch.stack(matrices)).cpu().numpy()
+                matrices += [matrices[-1]] * (qks.shape[1] - len(matrices))
+                cost = model.gather_batch(
+                    _dtw_cost_batched(-torch.stack(matrices))).cpu().numpy()
                 jumps_np = dtw_jumps_batched(cost[:n_todo], row_counts,
                                              max_qk_lens)
         del qks

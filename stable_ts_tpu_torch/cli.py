@@ -7,14 +7,18 @@ with a ``--persist`` REPL, unfinished-result saving, and ``--debug`` call
 echoing. The flags, defaults and help are stable_ts_tpu's, but for the
 device: ``--device`` takes ``cuda`` (the default) or ``cpu`` and goes to
 ``load_model(device=...)``; ``--dtype`` / ``--fp16`` give torch dtypes;
-``--shard`` raises until multi-GPU sharding is ported (ROADMAP.md, §1
-item 8); there is no compilation cache to switch on.
+there is no compilation cache to switch on. ``--shard`` (with ``--tp``)
+runs under ``torchrun``, one process per GPU: each rank joins the world
+from torchrun's environment (NCCL on the GPU, gloo with ``--device
+cpu``), shards the loaded model over the (dp, tp) mesh and computes the
+same result; rank 0 alone writes the output files.
 
 Usage:
     stable-ts-tpu-torch audio.wav -o out.srt
     stable-ts-tpu-torch audio.flac --align text.txt --language en -o out.json
     python -m stable_ts_tpu_torch audio.wav --output_format srt,json
     stable-ts-tpu-torch audio.wav --device cpu     # no GPU: f32 on the CPU
+    torchrun --nproc_per_node 2 -m stable_ts_tpu_torch audio.wav --shard --tp 2
 """
 import argparse
 import json
@@ -387,10 +391,12 @@ def _run_once(args, cache: dict):
             'Zero-egress environments cannot download from the Hub.')
     if args.tp is not None and not args.shard:
         warnings.warn('--tp has no effect without --shard.')
+    writer = True   # this process writes the output files
     if args.shard:
-        raise NotImplementedError(
-            '--shard is not ported to stable_ts_tpu_torch yet: multi-GPU '
-            'sharding is ROADMAP.md §1 item 8')
+        import torch.distributed as dist
+        from .parallel import distributed_init
+        distributed_init(backend='gloo' if device == 'cpu' else None)
+        writer = not dist.is_initialized() or dist.get_rank() == 0
     if args.demucs and not args.denoiser:
         args.denoiser = 'demucs'
     denoiser_options = _parse_extra_options(
@@ -399,7 +405,7 @@ def _run_once(args, cache: dict):
         denoiser_options['save_path'] = args.denoiser_output
 
     model_key = (args.model, args.model_dir, args.dtype,
-                 args.dynamic_quantization, device,
+                 args.dynamic_quantization, device, args.shard, args.tp,
                  tuple(sorted(model_options.items())))
 
     def model():
@@ -415,6 +421,8 @@ def _run_once(args, cache: dict):
                 vocab_path=args.vocab, dtype=dtype,
                 dq=args.dynamic_quantization, device=device,
                 **model_options), args.debug)
+            if args.shard:
+                cache['model'].shard(tp=args.tp)
             cache['model_key'] = model_key
         return cache['model']
 
@@ -509,13 +517,13 @@ def _run_once(args, cache: dict):
             except KeyboardInterrupt:
                 result = None
             if result is not None and result.unfinished_start >= 0:
-                if args.save_unfinished or args.resume:
+                if writer and (args.save_unfinished or args.resume):
                     unfinished = splitext(out_paths[0])[0] + '-UNFINISHED.json'
                     result.save_as_json(unfinished)
                     print(f'Saved unfinished result: {unfinished}')
                 continue
-            if (result is not None and args.delete_resume and args.resume
-                    and os.path.isfile(args.resume)):
+            if (writer and result is not None and args.delete_resume
+                    and args.resume and os.path.isfile(args.resume)):
                 os.remove(args.resume)
 
         if result is None:
@@ -528,7 +536,7 @@ def _run_once(args, cache: dict):
         if args.max_chars or args.max_words:
             result.split_by_length(max_chars=args.max_chars,
                                    max_words=args.max_words)
-        for out_path in out_paths:
+        for out_path in out_paths if writer else ():
             _save_result(result, out_path, args, save_options, args.debug)
 
 

@@ -10,7 +10,9 @@ MLX directory (``models/whisper/load.py``), by path or by name;
 :func:`load_test_model` and :func:`from_jax` build models from a seed or
 from a JAX model's weights. ``dq=True`` quantizes the q/k/v/out/fc1/fc2
 linears to int8 weights with per-output-channel scales on the model's
-device (stable_ts_tpu/loaders.py:41-47).
+device (stable_ts_tpu/loaders.py:41-47). :meth:`WhisperTorch.shard` puts a
+model on a (dp, tp) mesh of ``torch.distributed`` ranks, one process per
+GPU (``parallel/``).
 """
 import os
 from typing import Optional, Sequence, Tuple
@@ -21,7 +23,7 @@ import torch
 # load_faster_whisper is exported from here, as in stable_ts_tpu.loaders
 from .backends.faster_whisper import (is_faster_whisper_model, load_faster_whisper,
                                       modify_fw_model)
-from .models.whisper.decoding import (DecodingOptions, decode as _decode,
+from .models.whisper.decoding import (DecodingOptions,
                                       decode_collect as _decode_collect,
                                       decode_launch as _decode_launch,
                                       detect_language as _detect_language)
@@ -55,9 +57,47 @@ class WhisperTorch:
         self.quantized = is_quantized(self.params)
         self.name = name
         self.alignment_heads = alignment_heads
+        self.mesh = None
         self._vocab_path = vocab_path
         self._ranks = ranks
         self._tokenizers = {}
+
+    # -- device mesh ---------------------------------------------------------------------
+
+    def shard(self, mesh=None, tp: Optional[int] = None) -> 'WhisperTorch':
+        """Put the model on a (dp, tp) mesh of the ``torch.distributed``
+        world (``parallel.build_mesh(tp=tp)`` unless a mesh is given; a
+        process outside any world starts a world of one). This rank keeps
+        its Megatron column / row shard of the weights over ``tp``
+        (``parallel.shard_params``), and the batch entries split their rows
+        over ``dp``: :meth:`embed_audio` and :meth:`decode_launch` inside,
+        the timing, align and refine passes through :meth:`shard_batch`
+        (stable_ts_tpu/loaders.py:59-78). Every rank calls the same methods
+        with the same arguments. Returns self."""
+        from .parallel.mesh import build_mesh, shard_params
+        if mesh is None:
+            mesh = build_mesh(tp=tp, devices=self.device.type)
+        shard_params(self.params, mesh, self.dims)
+        self.mesh = mesh
+        return self
+
+    def shard_batch(self, arr):
+        """(this rank's rows of ``arr`` on the model's device, the real row
+        count): the rows padded to a dp multiple by repeating the last one,
+        then split evenly over dp (stable_ts_tpu/loaders.py:80-97). Without
+        a mesh: ``arr`` on the device and its length."""
+        from .parallel.mesh import split_batch
+        return split_batch(arr, self.mesh, self.device)
+
+    def gather_batch(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """All-gather a result of :meth:`shard_batch`'s rows over dp along
+        ``dim``: the padded global batch, on every rank. The identity
+        without a mesh."""
+        from .parallel.mesh import gather_batch
+        return gather_batch(t, self.mesh, dim)
+
+    def _dp_split(self) -> bool:
+        return self.mesh is not None and self.mesh['dp'].size() > 1
 
     @property
     def is_multilingual(self) -> bool:
@@ -103,11 +143,15 @@ class WhisperTorch:
 
     @torch.inference_mode()
     def embed_audio(self, mel) -> torch.Tensor:
-        """mel (n_mels, 3000) or (B, n_mels, 3000) -> features (B, 1500, d)."""
-        mel = self._on_device(mel)
+        """mel (n_mels, 3000) or (B, n_mels, 3000) -> features (B, 1500, d).
+        On a dp mesh each rank encodes its rows and the features are
+        gathered: every rank returns all B."""
         if mel.ndim == 2:
             mel = mel[None]
-        return encoder_apply(self.params.encoder, mel)
+        if not self._dp_split():
+            return encoder_apply(self.params.encoder, self._on_device(mel))
+        mel_in, n = self.shard_batch(mel)
+        return self.gather_batch(encoder_apply(self.params.encoder, mel_in))[:n]
 
     def decode(self, mel_or_features, options: Optional[DecodingOptions] = None,
                ts_silence_mask=None, language: Optional[str] = None,
@@ -123,10 +167,10 @@ class WhisperTorch:
         x = self._on_device(mel_or_features)
         if language is None:
             language = self.detect_language(x)[0][0] if self.is_multilingual else 'en'
-        tokenizer = self.get_tokenizer(language=language, task=options.task)
-        return _decode(self.params, self.dims, tokenizer, x, options,
-                       ts_silence_mask=ts_silence_mask,
-                       with_features=with_features, generator=generator)
+        return self.decode_collect(
+            self.decode_launch(x, options, ts_silence_mask=ts_silence_mask,
+                               language=language, generator=generator),
+            with_features=with_features)
 
     def decode_launch(self, mel_or_features,
                       options: Optional[DecodingOptions] = None,
@@ -141,10 +185,42 @@ class WhisperTorch:
             options = DecodingOptions(**kwargs)
         tokenizer = self.get_tokenizer(
             language=options.language or language or 'en', task=options.task)
-        return _decode_launch(self.params, self.dims, tokenizer,
-                              self._on_device(mel_or_features), options,
-                              ts_silence_mask=ts_silence_mask,
-                              generator=generator)
+        if self.mesh is None:
+            return _decode_launch(self.params, self.dims, tokenizer,
+                                  self._on_device(mel_or_features), options,
+                                  ts_silence_mask=ts_silence_mask,
+                                  generator=generator)
+        # on a mesh: every rank decodes its rows of the global features
+        # (the outputs are gathered in decode_collect), and an
+        # out-of-memory error on any rank raises on every rank, so that
+        # all of them retry together: a rank retrying alone would leave the
+        # others waiting in a collective. (The ranks of a tp group hold the
+        # same rows and shapes, so they run out of memory alike.)
+        from .parallel.mesh import all_ranks_agree, batch_rows, split_batch
+        x = mel_or_features
+        if x.ndim == 2:
+            x = x[None]
+        feats = (self.embed_audio(x) if x.shape[-2] == self.dims.n_mels
+                 else self._on_device(x))
+        feats_in, n = self.shard_batch(feats)
+        mask = ts_silence_mask
+        if mask is not None:
+            mask = np.asarray(mask, bool)
+            if mask.ndim == 1:
+                mask = np.repeat(mask[None], n, axis=0)
+            mask = split_batch(mask, self.mesh, 'cpu')[0].numpy()
+        try:
+            pending = _decode_launch(self.params, self.dims, tokenizer, feats_in,
+                                     options, ts_silence_mask=mask,
+                                     generator=generator,
+                                     batch_slice=(batch_rows(n, self.mesh)[1], n))
+        except torch.OutOfMemoryError:
+            pending = None
+        if all_ranks_agree(pending is None, self.device, self.mesh):
+            raise torch.OutOfMemoryError('device out of memory on a rank of the mesh')
+        pending.xa, pending.gather, pending.n_windows = (
+            feats, self.gather_batch, n)
+        return pending
 
     def decode_collect(self, pending, with_features: bool = True):
         """Download a launched decode's outputs; its DecodingResults."""

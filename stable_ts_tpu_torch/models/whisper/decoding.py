@@ -13,9 +13,10 @@ window's cross K/V, stopping when nothing is left to sample:
   picks the token.
 - **sampling** (temperature > 0) with ``best_of`` candidates per window
   (``_sample_loop``): the token is drawn from ``softmax(filtered / T)``
-  with an explicit ``torch.Generator``; its logprob comes from
-  ``log_softmax(filtered)``; the candidate with the best
-  length-normalised logprob wins (``decode_collect``).
+  by inverse CDF, from uniform noise that an explicit ``torch.Generator``
+  draws once for every step and every row of the global batch; its
+  logprob comes from ``log_softmax(filtered)``; the candidate with the
+  best length-normalised logprob wins (``decode_collect``).
 - **beam search** (``beam_size``, temperature 0) (``_beam_loop``,
   ``_finalize_beam``): the cache never moves; an ancestry table does.
 - :func:`detect_language`.
@@ -25,7 +26,11 @@ JAX's ``decode`` (decoding.py:685-928): ``decode_launch`` runs the prefill
 and the loop and returns a :class:`PendingDecode` whose outputs (tokens,
 sums, beam pools, no-speech probabilities) are still on the device;
 ``decode_collect`` downloads them and builds the results. The batched
-driver (``batched.py``) decodes its window groups through the seam.
+driver (``batched.py``) decodes its window groups through the seam. On a
+dp mesh a rank decodes its rows of the batch (``batch_slice``); the noise of
+every row is drawn on every rank, so the draws do not depend on the split,
+and ``decode_collect`` gathers the outputs over dp before it downloads
+them (``PendingDecode.gather``).
 
 A window's best_of candidates or beams share its cross K/V
 (``q_per_kv``). The host loop passes the exact position to every step, so
@@ -38,7 +43,7 @@ import math
 import zlib
 from dataclasses import dataclass, field
 from functools import partial
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -220,10 +225,19 @@ def detect_language(model, dims, tokenizer, mel_or_features: torch.Tensor):
 
 
 def sample_tokens(filtered: torch.Tensor, temperature: float,
-                  generator: torch.Generator) -> torch.Tensor:
-    """One token per row drawn from softmax(filtered / temperature)."""
+                  generator: Optional[torch.Generator],
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token per row drawn from softmax(filtered / temperature) by
+    inverse CDF: the first token whose cumulative probability passes
+    ``u`` (one uniform [0, 1) value per row; drawn from ``generator`` when
+    not given) times the total, so a token of probability 0 is never
+    drawn."""
     probs = torch.softmax(filtered / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    if u is None:
+        u = torch.rand(probs.shape[0], generator=generator, device=probs.device)
+    cdf = probs.cumsum(dim=-1)
+    tok = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)[:, 0]
+    return tok.clamp_(max=probs.shape[-1] - 1)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -285,10 +299,11 @@ def _greedy_loop(step, filt, logits, epilogue, *, sample_begin: int,
 
 
 def _sample_loop(step, filt, logits, *, temperature: float,
-                 generator: torch.Generator, sample_begin: int,
+                 noise: torch.Tensor, sample_begin: int,
                  sample_len: int, eot: int, ts_begin: int):
     """Temperature sampling over the unfused filters (decoding.py:368-399).
-    Returns (sampled tokens (B, n), sum of logprobs (B,))."""
+    ``noise`` (sample_len, B): each step's uniform draws. Returns (sampled
+    tokens (B, n), sum of logprobs (B,))."""
     rows = logits.shape[0]
     neg1 = torch.full((rows,), -1, dtype=torch.long, device=logits.device)
     last_tok, penult_tok, max_ts = neg1, neg1, neg1
@@ -297,7 +312,7 @@ def _sample_loop(step, filt, logits, *, temperature: float,
     sampled = []
     for i in range(sample_len):
         filtered = filt(logits, i, last_tok, penult_tok, max_ts)
-        next_tok = sample_tokens(filtered, temperature, generator)
+        next_tok = sample_tokens(filtered, temperature, None, u=noise[i])
         tok_logprob = torch.log_softmax(filtered, dim=-1).gather(
             -1, next_tok[:, None])[:, 0]
         sum_logprobs += torch.where(finished, 0.0, tok_logprob)
@@ -460,6 +475,11 @@ class PendingDecode:
     tokenizer: object
     no_speech_probs: torch.Tensor  # (rows,) on the device
     outputs: tuple                 # the loop's outputs, on the device
+    sample_len: int = 0
+    # on a dp mesh: all-gathers a tensor of this rank's windows (or rows)
+    # over dp, and the global window count to keep of it
+    gather: Optional[Callable] = None
+    n_windows: int = 0
 
 
 @torch.inference_mode()
@@ -484,10 +504,15 @@ def decode(model, dims, tokenizer, mel_or_features: torch.Tensor,
 def decode_launch(model, dims, tokenizer, mel_or_features: torch.Tensor,
                   options: DecodingOptions = DecodingOptions(),
                   ts_silence_mask: Optional[np.ndarray] = None,
-                  generator: Optional[torch.Generator] = None) -> PendingDecode:
+                  generator: Optional[torch.Generator] = None,
+                  batch_slice: Optional[Tuple[int, int]] = None) -> PendingDecode:
     """Run a batched decode and keep its outputs on the device; see
     :class:`PendingDecode`. Pass encoder features to reuse them across the
-    temperature fallback's rungs (decoding.py:724-868)."""
+    temperature fallback's rungs (decoding.py:724-868). ``batch_slice``: (the
+    global index of this batch's first window, the global window count)
+    when the batch is one rank's share of a larger one (padded windows
+    past the count repeat the last); the sampler then draws every global
+    row's noise and keeps this batch's."""
     xa = audio_features(model, dims, mel_or_features)
     device = xa.device
     batch = xa.shape[0]
@@ -552,7 +577,7 @@ def decode_launch(model, dims, tokenizer, mel_or_features: torch.Tensor,
                 ts_begin=ts_begin)
     pending = partial(PendingDecode, xa=xa, n_group=n_group,
                       options=options, tokenizer=tokenizer,
-                      no_speech_probs=no_speech)
+                      no_speech_probs=no_speech, sample_len=sample_len)
 
     if use_beam:
         max_candidates = int(math.ceil(n_group * (options.patience or 1.0)))
@@ -572,10 +597,37 @@ def decode_launch(model, dims, tokenizer, mel_or_features: torch.Tensor,
     else:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
+        first, n_windows = batch_slice or (0, batch)
+        noise = torch.rand((sample_len, n_windows * n_group),
+                           generator=generator, device=device)
+        window = (first + torch.arange(batch, device=device)).clamp_(
+            max=n_windows - 1)
+        noise = noise[:, (window[:, None] * n_group + torch.arange(
+            n_group, device=device)).reshape(-1)]
         outputs = _sample_loop(step, filt, logits,
                                temperature=options.temperature,
-                               generator=generator, **loop)
+                               noise=noise, **loop)
     return pending(kind='sample', outputs=outputs)
+
+
+def _gather_outputs(pending: PendingDecode):
+    """(outputs, no-speech probabilities) of a rank's share gathered over
+    dp and cut to the global windows. Each rank's loop stops when its own
+    rows are done, so the sampled tokens are first padded with EOT to
+    ``sample_len`` (what follows a row's first EOT is never read)."""
+    gather, n = pending.gather, pending.n_windows
+    rows = n * pending.n_group
+    if pending.kind == 'beam':
+        tokens, cum, fin_tokens, fin_scores = pending.outputs
+        outputs = (gather(tokens)[:rows], gather(cum)[:rows],
+                   gather(fin_tokens)[:n], gather(fin_scores)[:n])
+    else:
+        tokens, sum_logprobs = pending.outputs
+        tokens = torch.nn.functional.pad(
+            tokens, (0, pending.sample_len - tokens.shape[1]),
+            value=pending.tokenizer.eot)
+        outputs = (gather(tokens)[:rows], gather(sum_logprobs)[:rows])
+    return outputs, gather(pending.no_speech_probs)[:rows]
 
 
 def decode_collect(pending: PendingDecode,
@@ -586,15 +638,18 @@ def decode_collect(pending: PendingDecode,
     itself."""
     options, tokenizer = pending.options, pending.tokenizer
     n_group, eot = pending.n_group, tokenizer.eot
-    no_speech = pending.no_speech_probs.cpu().numpy()
+    outputs, no_speech = pending.outputs, pending.no_speech_probs
+    if pending.gather is not None:
+        outputs, no_speech = _gather_outputs(pending)
+    no_speech = no_speech.cpu().numpy()
     if pending.kind == 'beam':
         tokens_np, cum_np, fin_tok_np, fin_sc_np = (
-            t.cpu().numpy() for t in pending.outputs)
+            t.cpu().numpy() for t in outputs)
         chosen = [(b * n_group, seq, avg) for b, (seq, avg) in enumerate(
             _finalize_beam(tokens_np, cum_np, fin_tok_np, fin_sc_np, n_group,
                            options.length_penalty, eot))]
     else:
-        tokens, sum_logprobs = pending.outputs
+        tokens, sum_logprobs = outputs
         chosen = select_best_of(tokens.cpu().numpy(), sum_logprobs.cpu().numpy(),
                                 n_group, eot, options.length_penalty)
 

@@ -37,6 +37,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -138,11 +139,25 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = MLP(d, **factory)
 
 
-class AudioEncoder(nn.Module):
+class _Stack(nn.Module):
+    """The head layout of one stack. ``n_head`` counts the heads this
+    module computes: all of them, or this rank's after ``shard_params``,
+    which also sets ``head_offset`` (its first head) and ``tp_group`` (the
+    group its row amaxes and head captures reduce over; None when
+    unsharded). ``d_head`` and ``n_head_total`` stay the model's."""
+
+    def _init_heads(self, d: int, n_head: int):
+        self.n_head = self.n_head_total = n_head
+        self.d_head = d // n_head
+        self.head_offset = 0
+        self.tp_group = None
+
+
+class AudioEncoder(_Stack):
     def __init__(self, dims: ModelDimensions, **factory):
         super().__init__()
         d = dims.n_audio_state
-        self.n_head = dims.n_audio_head
+        self._init_heads(d, dims.n_audio_head)
         self.conv1 = nn.Conv1d(dims.n_mels, d, 3, padding=1, **factory)
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, **factory)
         self.pos_emb = nn.Parameter(torch.empty(dims.n_audio_ctx, d, **factory))
@@ -152,11 +167,11 @@ class AudioEncoder(nn.Module):
         self.ln_post = LayerNorm(d, **factory)
 
 
-class TextDecoder(nn.Module):
+class TextDecoder(_Stack):
     def __init__(self, dims: ModelDimensions, **factory):
         super().__init__()
         d = dims.n_text_state
-        self.n_head = dims.n_text_head
+        self._init_heads(d, dims.n_text_head)
         self.token_emb = nn.Parameter(torch.empty(dims.n_vocab, d, **factory))
         self.pos_emb = nn.Parameter(torch.empty(dims.n_text_ctx, d, **factory))
         self.blocks = nn.ModuleList(
@@ -195,6 +210,7 @@ class Whisper(nn.Module):
     def __init__(self, dims: ModelDimensions, **factory):
         super().__init__()
         self.dims = dims
+        self.mesh = None  # the (dp, tp) mesh of parallel.shard_params
         self.encoder = AudioEncoder(dims, **factory)
         self.decoder = TextDecoder(dims, **factory)
 
@@ -208,7 +224,7 @@ def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor) -> torch.Tensor:
     x = gelu(encoder.conv2(x))
     x = (x.transpose(1, 2) + encoder.pos_emb).to(x.dtype)
     n_head = encoder.n_head
-    scale = (x.shape[-1] // n_head) ** -0.5
+    scale = encoder.d_head ** -0.5
     for blk in encoder.blocks:
         h = blk.attn_ln(x)
         a = blk.attn
@@ -240,18 +256,23 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
     whose raw QK is captured per layer (see
     timing.build_head_capture_table; padding slots repeat head 0); None
     captures every head. The captured QK is recomputed from the selected
-    heads only, q and k each scaled by d_head**-0.25, in f32."""
+    heads only, q and k each scaled by d_head**-0.25, in f32. On a tp
+    shard each rank computes the slots of the heads it holds, zeros in the
+    others, and the sum over the tp group is the whole capture on every
+    rank."""
     b, n_tok = tokens.shape
-    n_head = decoder.n_head
-    d = decoder.token_emb.shape[1]
-    dh = d // n_head
+    n_head, dh = decoder.n_head, decoder.d_head
     if capture_qk:
         # uploaded before any kernel is queued: a copy from pageable memory
         # waits for the stream it is queued on
-        heads = (torch.arange(n_head, device=tokens.device)[None].expand(
-                     len(decoder.blocks), n_head) if capture_index is None
+        n_total = decoder.n_head_total
+        heads = (torch.arange(n_total, device=tokens.device)[None].expand(
+                     len(decoder.blocks), n_total) if capture_index is None
                  else torch.as_tensor(capture_index, dtype=torch.long,
                                       device=tokens.device))
+        local = heads - decoder.head_offset
+        owned = (local >= 0) & (local < n_head)
+        local = local.clamp(0, n_head - 1)
     x = _embed(decoder, tokens)
     causal = _causal_mask(n_tok, x.device)
     qks = []
@@ -266,10 +287,13 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
         x = x + ca.out(flash_attention(q, k, ca.v(xa), n_head, dh ** -0.5))
         x = x + blk.mlp(blk.mlp_ln(x))
         if capture_qk:
-            qh = q.reshape(b, n_tok, n_head, dh).transpose(1, 2)[:, heads[layer]]
-            kh = k.reshape(b, -1, n_head, dh).transpose(1, 2)[:, heads[layer]]
+            qh = q.reshape(b, n_tok, n_head, dh).transpose(1, 2)[:, local[layer]]
+            kh = k.reshape(b, -1, n_head, dh).transpose(1, 2)[:, local[layer]]
             scale = dh ** -0.25
             qk = (qh * scale).float() @ (kh * scale).float().transpose(-1, -2)
+            if decoder.tp_group is not None:
+                qk = torch.where(owned[layer][:, None, None], qk, 0.0)
+                dist.all_reduce(qk, group=decoder.tp_group)
             qks.append(qk.to(torch.bfloat16))
     x = decoder.ln(x)
     logits = decoder.vocab_logits(x)
@@ -287,11 +311,10 @@ def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,
     by default, which ``locate`` decodes over (model.py:893-905)."""
     b, n_tok = tokens.shape
     n_head = decoder.n_head
-    d = decoder.token_emb.shape[1]
     n_layers = len(decoder.blocks)
     x = _embed(decoder, tokens)
     dev = x.device
-    shape = (n_layers, b, n_text_ctx, d)
+    shape = (n_layers, b, n_text_ctx, n_head * decoder.d_head)
     if int8_cache:
         cache = {
             'k': torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -314,17 +337,19 @@ def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,
                                      ca.v(xa), n_head)
         x = x + ca.out(cross_out)
         x = x + blk.mlp(blk.mlp_ln(x))
-        _write_rows(cache, layer, slice(0, n_tok), k, v)
+        _write_rows(cache, layer, slice(0, n_tok), k, v, decoder.tp_group)
     x = decoder.ln(x)
     return decoder.vocab_logits(x), cache
 
 
-def _write_rows(cache: dict, layer: int, at, k: torch.Tensor, v: torch.Tensor):
+def _write_rows(cache: dict, layer: int, at, k: torch.Tensor, v: torch.Tensor,
+                group=None):
     """Store K/V rows at cache positions ``at`` of ``layer``: quantized to
-    int8 with their scales when the cache has them, else as they are."""
+    int8 with their scales when the cache has them (the amax of a row split
+    over tp reduced over ``group``), else as they are."""
     for name, t in (('k', k), ('v', v)):
         if 'ks' in cache:
-            qt, sc = quantize_rows(t)
+            qt, sc = quantize_rows(t, group=group)
             cache[name][layer, :, at] = qt
             cache[name + 's'][layer, :, at] = sc
         else:
@@ -336,17 +361,19 @@ def fuse_self_qkv(decoder: TextDecoder):
     concatenated (model.py:459-484): one product per layer per token
     instead of three. k has no bias; its slot is zeros. A quantized layer
     concatenates the int8 weights and their per-output scales, which is
-    exact. Each entry is a callable x -> (..., 3d)."""
+    exact. On a tp shard the three hold this rank's heads, and so does
+    their product. Each entry is a callable x -> (..., 3 * n_head * d_head)."""
     fused = []
     for blk in decoder.blocks:
-        a = blk.attn
-        bias = torch.cat([a.q.bias, torch.zeros_like(a.q.bias), a.v.bias])
-        if isinstance(a.q, QuantizedLinear):
+        q, k, v = (getattr(lin, 'inner', lin)
+                   for lin in (blk.attn.q, blk.attn.k, blk.attn.v))
+        bias = torch.cat([q.bias, torch.zeros_like(q.bias), v.bias])
+        if isinstance(q, QuantizedLinear):
             fused.append(QuantizedLinear(
-                torch.cat([a.q.weight, a.k.weight, a.v.weight], dim=0),
-                torch.cat([a.q.scale, a.k.scale, a.v.scale]), bias))
+                torch.cat([q.weight, k.weight, v.weight], dim=0),
+                torch.cat([q.scale, k.scale, v.scale]), bias))
         else:
-            w = torch.cat([a.q.weight, a.k.weight, a.v.weight], dim=0)
+            w = torch.cat([q.weight, k.weight, v.weight], dim=0)
             fused.append(partial(F.linear, weight=w, bias=bias))
     return fused
 
@@ -362,8 +389,11 @@ def precompute_cross_kv_t(decoder: TextDecoder, xa: torch.Tensor,
     other width in 2..8 stores its grid unpacked, as the JAX package does.
     Returns {'kv': (L, B, 2, S, d) (or (L, B, 2, S, d / 2) bytes for int4),
     'sc': (L, B, 2, S) f32 per-position scales (ones when float), 's': S,
-    'bits': the stored width (0 = float)}."""
-    b, s, d = xa.shape
+    'bits': the stored width (0 = float)}. On a tp shard ``d`` is this
+    rank's heads' width, and each position's amax is reduced over the tp
+    group, so its scale and codes are the whole row's."""
+    b, s = xa.shape[:2]
+    d = decoder.n_head * decoder.d_head
     n_layers = len(decoder.blocks)
     bits = 0 if not quantize else (8 if quantize is True else int(quantize))
     if bits and not 2 <= bits <= 8:
@@ -376,7 +406,8 @@ def precompute_cross_kv_t(decoder: TextDecoder, xa: torch.Tensor,
         ca = blk.cross_attn
         for slot, t in enumerate((ca.k(xa), ca.v(xa))):
             if bits:
-                q, sc[layer, :, slot] = quantize_rows(t, bits)
+                q, sc[layer, :, slot] = quantize_rows(t, bits,
+                                                      group=decoder.tp_group)
                 kv[layer, :, slot] = pack_int4(q) if bits == 4 else q
             else:
                 kv[layer, :, slot] = t
@@ -402,14 +433,14 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
     ``anc[:, pos]`` must be each row's own local index, since this step
     writes each row's K/V in place."""
     n_head = decoder.n_head
-    d = decoder.token_emb.shape[1]
-    q_scale = (d // n_head) ** -0.5
+    d = n_head * decoder.d_head        # this rank's heads' width
+    q_scale = decoder.d_head ** -0.5
     x = _embed(decoder, tokens, offset=pos)
     cross_bits = 4 if cross_kv['bits'] == 4 else 8
     for layer, blk in enumerate(decoder.blocks):
         qkv = fused_qkv[layer](blk.attn_ln(x))
         q_proj, new_k, new_v = qkv[:, 0].split(d, dim=-1)
-        _write_rows(cache, layer, pos, new_k, new_v)
+        _write_rows(cache, layer, pos, new_k, new_v, decoder.tp_group)
         ks, vs = ((cache['ks'][layer], cache['vs'][layer]) if 'ks' in cache
                   else (None, None))
         ctx = self_attn_decode(q_proj.float() * q_scale, cache['k'][layer],

@@ -23,6 +23,7 @@ and returning unpacked int8 values.
 import os
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ...ops.woq_matmul import woq_matmul
@@ -63,17 +64,22 @@ def _woq_mode() -> str:
     return 'dyn' if pref in ('dyn', '1', 'on', 'true') else 'woq'
 
 
-def quantize_rows(t: torch.Tensor, bits: int = 8):
+def quantize_rows(t: torch.Tensor, bits: int = 8, group=None):
     """Per-row symmetric int``bits`` over the last axis: (..., d) -> int8
     values (..., d) and f32 scales (...,). Half-to-even rounding, as
     jnp.round. The scale is amax times the f32 reciprocal of the grid's
     top, not amax divided by it: the JAX functions that quantize cache rows
     and ``dyn``'s activations are compiled, and XLA folds the division by
     the constant into that multiply, so the two packages round the same
-    values to the same codes."""
+    values to the same codes. ``group``: the tp group over which the rows'
+    last axis is split (a rank holds ``d / tp`` of each row); the amax is
+    all-reduced (MAX) over it, so the scale and the codes are the whole
+    row's."""
     qmax = float(2 ** (bits - 1) - 1)
     t32 = t.float()
     amax = t32.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     sc = torch.where(amax > 0, amax * torch.tensor(1.0 / qmax, dtype=torch.float32),
                      torch.ones_like(amax))
     q = torch.clamp(torch.round(t32 / sc), -qmax, qmax).to(torch.int8)
@@ -93,14 +99,20 @@ def int8_mm(xq: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, weight.t())
 
 
-def dyn_linear(x, weight, scale, bias=None) -> torch.Tensor:
+def dyn_linear(x, weight, scale, bias=None, group=None) -> torch.Tensor:
     """stable_ts_tpu's ``dyn`` linear (model.py:93-104): x quantized per
     row to int8 (:func:`quantize_rows`), int32 sums against the (N, K) int8
     weight, then ``(sums * row scale) * column scale + bias`` in f32, cast
-    to x's dtype."""
+    to x's dtype. ``group``: the tp group of a row-split weight (this rank
+    holds K / tp of x's row and of the weight's input channels): the row's
+    amax and the int32 partial sums are all-reduced over it before the
+    scalings, which keeps the sums exact, as XLA's int32 product is."""
     lead, k = x.shape[:-1], x.shape[-1]
-    xq, xs = quantize_rows(x.reshape(-1, k))
-    out = int8_mm(xq, weight).float() * xs[:, None] * scale
+    xq, xs = quantize_rows(x.reshape(-1, k), group=group)
+    sums = int8_mm(xq, weight)
+    if group is not None:
+        dist.all_reduce(sums, group=group)
+    out = sums.float() * xs[:, None] * scale
     if bias is not None:
         out = out + bias
     return out.to(x.dtype).reshape(*lead, weight.shape[0])
@@ -157,15 +169,22 @@ class QuantizedLinear(nn.Module):
 
 
 def _linears(model):
-    """(parent module, name) of every quantizable linear of both stacks."""
+    """(parent module, name) of every quantizable linear of both stacks;
+    the parent of a tensor-parallel linear's is its wrapper
+    (``parallel/tensor_parallel.py``)."""
     for stack in (model.encoder, model.decoder):
         for blk in stack.blocks:
             for attn in ('attn', 'cross_attn'):
                 if hasattr(blk, attn):
                     for proj in ('q', 'k', 'v', 'out'):
-                        yield getattr(blk, attn), proj
+                        yield _unwrapped(getattr(blk, attn), proj)
             for fc in ('fc1', 'fc2'):
-                yield blk.mlp, fc
+                yield _unwrapped(blk.mlp, fc)
+
+
+def _unwrapped(parent, name):
+    lin = getattr(parent, name)
+    return (lin, 'inner') if hasattr(lin, 'inner') else (parent, name)
 
 
 def is_quantized(model) -> bool:

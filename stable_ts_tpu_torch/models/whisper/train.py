@@ -12,10 +12,19 @@ self-attention and the decoder's cross-attention through the flash kernels
 backward kernels recompute the scores from it), the rest through PyTorch's
 autograd. Unlike JAX's pure step, ``train_step`` updates the model's
 parameters and the optimizer's state in place and returns only the loss.
+
+On a (dp, tp) mesh (``parallel.shard_params``; the step of
+__graft_entry__.py:86-109) every rank passes the same global batch and
+takes its dp share of the rows. Its loss is its rows' summed NLL over the
+global count, so the gradients summed over dp are the global mean's; the
+tp gradients come from the tensor-parallel linears' autograd functions;
+AdamW updates each rank's shards, elementwise as JAX's global update. The
+returned loss is the global one.
 """
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from .dims import ModelDimensions
 from .model import Whisper, decoder_apply, encoder_apply
@@ -23,15 +32,21 @@ from .quantization import is_quantized
 
 
 def cross_entropy_loss(model: Whisper, mel: torch.Tensor, tokens: torch.Tensor,
-                       label_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       label_mask: Optional[torch.Tensor] = None,
+                       denominator: Optional[float] = None) -> torch.Tensor:
     """Teacher-forced next-token CE over the decoder (train.py:19-32).
     mel (B, n_mels, 3000); tokens (B, T) int; label_mask (B, T) or None.
     Returns the 0-d f32 mean NLL of tokens[:, 1:] (over the mask's
-    positions [:, 1:] when one is given)."""
+    positions [:, 1:] when one is given). ``denominator``: the (masked)
+    NLL's sum over it instead, a dp rank's share of the global mean."""
     xa = encoder_apply(model.encoder, mel)
     logits, _ = decoder_apply(model.decoder, tokens[:, :-1], xa)
     logprobs = torch.log_softmax(logits.float(), dim=-1)
     nll = -logprobs.gather(-1, tokens[:, 1:, None])[..., 0]
+    if denominator is not None:
+        if label_mask is not None:
+            nll = nll * label_mask[:, 1:].float()
+        return nll.sum() / denominator
     if label_mask is not None:
         mask = label_mask[:, 1:].float()
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
@@ -74,6 +89,9 @@ def make_train_step(dims: ModelDimensions,
         optimizer's update, in place. Returns the 0-d f32 loss."""
         _check_model(model)
         device = model.decoder.token_emb.device
+        mesh = model.mesh
+        if mesh is not None and mesh['dp'].size() > 1:
+            return _dp_step(model, opt, mesh, mel, tokens, label_mask)
         mel = torch.as_tensor(mel).to(device)
         tokens = torch.as_tensor(tokens).to(device=device, dtype=torch.long)
         if label_mask is not None:
@@ -85,3 +103,35 @@ def make_train_step(dims: ModelDimensions,
         return loss.detach()
 
     return init_opt_state, train_step
+
+
+def _dp_step(model: Whisper, opt, mesh, mel, tokens, label_mask):
+    """The step on this rank's dp rows of the global batch (the batch must
+    split evenly): the loss over the global count, its gradients summed
+    over dp, the update; returns the global loss."""
+    from ...parallel.mesh import split_batch
+    device = model.decoder.token_emb.device
+    dp = mesh['dp'].size()
+    tokens = torch.as_tensor(tokens)
+    if tokens.shape[0] % dp:
+        raise ValueError(f'a batch of {tokens.shape[0]} rows does not split '
+                         f'over dp={dp}')
+    if label_mask is None:
+        denominator = float(tokens.shape[0] * (tokens.shape[1] - 1))
+    else:
+        label_mask = torch.as_tensor(label_mask)
+        denominator = max(float(label_mask[:, 1:].float().sum()), 1.0)
+        label_mask = split_batch(label_mask, mesh, device)[0]
+    mel = split_batch(mel, mesh, device)[0]
+    tokens = split_batch(tokens, mesh, device)[0].long()
+    opt.zero_grad(set_to_none=True)
+    loss = cross_entropy_loss(model, mel, tokens, label_mask, denominator)
+    loss.backward()
+    group = mesh.get_group('dp')
+    for p in model.parameters():
+        if p.grad is not None:
+            dist.all_reduce(p.grad, group=group)
+    opt.step()
+    loss = loss.detach()
+    dist.all_reduce(loss, group=group)
+    return loss

@@ -6,10 +6,10 @@ surface parses, outputs map to inputs, JSON input is reprocessed without a
 model, unfinished results are saved and resumed, the model is cached
 across requests and the escape hatches reach the model. Then what is the
 port's own: ``--device`` takes cuda (the default) or cpu and nothing else,
-``--dtype`` / ``--fp16`` give torch dtypes, ``--shard`` raises until
-multi-GPU sharding is ported, ``-fw`` / ``-mlx`` raise as stable_ts_tpu's
-do, ``--persist`` serves requests from stdin on one loaded model, and
-``python -m stable_ts_tpu_torch`` runs the same ``cli()``. The copy of
+``--dtype`` / ``--fp16`` give torch dtypes, ``--shard --tp`` shards the
+loaded model and only rank 0 writes, ``-fw`` / ``-mlx`` raise as
+stable_ts_tpu's do, ``--persist`` serves requests from stdin on one loaded
+model, and ``python -m stable_ts_tpu_torch`` runs the same ``cli()``. The copy of
 video_output.py refuses to run without ffmpeg, as stable_ts_tpu's does.
 
 Last, one parametrised parity test runs stable_ts_tpu's ``cli()`` and the
@@ -153,13 +153,25 @@ class TestCompatBehavior:
                  '-v', '0', '-d', str(tmp_path)])
 
     def test_shard_raises_naming_the_roadmap_item(self, parser, tmp_path,
-                                                  fake_model):
+                                                  fake_model, monkeypatch):
+        """``--shard --tp 2`` no longer raises: the loaded model is sharded
+        with tp=2 and transcribes, and a rank other than 0 writes no
+        output file."""
+        import torch.distributed as dist
         from stable_ts_tpu_torch.cli import _run_once
-        args = parser.parse_args([_wav(tmp_path / 'a.wav'), '--shard', '--tp', '2',
-                                  '-y', '-v', '0', '-d', str(tmp_path)])
-        with pytest.raises(NotImplementedError, match='item 8'):
-            _run_once(args, {})
-        assert fake_model.calls == []
+        wav = _wav(tmp_path / 'a.wav')
+        out_dir = tmp_path / 'out'
+        args = parser.parse_args([wav, '--shard', '--tp', '2', '-y', '-v', '0',
+                                  '-d', str(out_dir)])
+        monkeypatch.setattr(dist, 'is_initialized', lambda: True)
+        monkeypatch.setattr(dist, 'get_rank', lambda: 1)
+        _run_once(args, {})
+        assert [c[0] for c in fake_model.calls] == ['shard', 'transcribe']
+        assert fake_model.calls[0][1] == {'tp': 2}
+        assert not out_dir.exists()
+        monkeypatch.setattr(dist, 'get_rank', lambda: 0)
+        _run_once(args, {})
+        assert (out_dir / 'a.srt').exists()
 
     def test_tp_without_shard_warns(self, parser, tmp_path, fake_model):
         from stable_ts_tpu_torch.cli import _run_once
@@ -209,6 +221,10 @@ class _FakeModel:
         return self._factory(**kwargs)
 
     transcribe_minimal = transcribe_batched = transcribe
+
+    def shard(self, **kwargs):
+        self.calls.append(('shard', kwargs))
+        return self
 
     def refine(self, **kwargs):
         self.calls.append(('refine', kwargs))
@@ -621,3 +637,51 @@ def test_cli_matches_jax(case, extra, woq, cli_inputs, tmp_path, monkeypatch, ca
         assert (tmp_path / 'port' / f'{stem}.json').read_bytes() == \
             (tmp_path / 'jax' / f'{stem}.json').read_bytes()
     _json_matches(tmp_path / 'port' / f'{stem}.json', tmp_path / 'jax' / f'{stem}.json')
+
+
+def test_cli_shard_under_torchrun_matches_jax_shard(cli_inputs, tmp_path,
+                                                   monkeypatch, capsys):
+    """``torchrun --nproc_per_node 2 -m stable_ts_tpu_torch ... --shard --tp
+    2 --device cpu``: two gloo ranks, the tiny model's two heads split
+    over them, write stable_ts_tpu's ``--shard --tp 2`` output files (its
+    8-device CPU mesh, dp 4 x tp 2) byte for byte, the JSON within the
+    parity tolerances. JAX's mesh turns its fused kernels off
+    process-wide; they are turned back on, and the traces dropped,
+    afterwards."""
+    import socket
+    import subprocess
+    import sys
+    import jax
+    from stable_ts_tpu.cli import cli as jax_cli
+    from stable_ts_tpu.models.whisper import model as model_mod
+    for name, value in _JAX_KNOBS.items():
+        monkeypatch.setenv(name, value)
+    common = [cli_inputs['wav'], '--model', cli_inputs['pt'], '--language', 'en',
+              '--temperature_increment_on_fallback', 'None', '-y', '-v', '0',
+              '--dtype', 'float32', '-f', ','.join(FORMATS + ('json',)),
+              '--shard', '--tp', '2']
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != 'XLA_FLAGS'}
+    env['CUDA_VISIBLE_DEVICES'] = ''
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--nnodes', '1',
+         '--nproc_per_node', '2', '--master_addr', '127.0.0.1',
+         '--master_port', str(port), '-m', 'stable_ts_tpu_torch', *common,
+         '-d', str(tmp_path / 'port'), '--device', 'cpu'],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    was_on = model_mod.fused_kernels_enabled()
+    try:
+        _run_cli(jax_cli, common + ['-d', str(tmp_path / 'jax')], capsys)
+    finally:
+        model_mod.set_fused_kernels_enabled(was_on)
+        jax.clear_caches()
+    log = proc.communicate(timeout=600)[0]
+    assert proc.returncode == 0, log[-4000:]
+    for fmt in FORMATS:
+        assert ((tmp_path / 'port' / f'noise.{fmt}').read_bytes()
+                == (tmp_path / 'jax' / f'noise.{fmt}').read_bytes()), fmt
+    _json_matches(tmp_path / 'port' / 'noise.json', tmp_path / 'jax' / 'noise.json')
