@@ -8,7 +8,7 @@ step:
 
 - greedy: 75 s and 20 s with language='en', temperature=0 (the logit
   epilogue on every step);
-- beam: 30 s with no language (detect_language) and beam_size=5 (the vocab
+- beam: 20 s with no language (detect_language) and beam_size=5 (the vocab
   projection on every step);
 - ladder: 30 s on temperature=(0.0, 0.4, 0.8) with best_of=5 (random
   weights fail every rung, so every rung runs);
@@ -46,7 +46,7 @@ step:
   flash and DTW kernels;
 - cli: on that ``large-v3.pt``, ``python -m stable_ts_tpu_torch`` as a
   subprocess on the 20-s clip as a 16-bit WAV (``--dtype bfloat16
-  --language en``, all six formats, the fallback ladder 0, 0.4, 0.8): exit 0,
+  --language en``, all six formats, the default fallback ladder): exit 0,
   six non-empty files, SRT bytes equal to the same argv run in this
   process (walls logged: the subprocess's start-up, imports, build check
   and load beside the in-process request's); then, in this process on one
@@ -80,13 +80,13 @@ step:
   differing times are logged); each wall beside the batched greedy's,
   and one round's probabilities batched, alone and sequential;
 - dq: the same weights quantized to int8 on the card (``dq=True``), with
-  packed int4 cross K/V (``kv_quant=4``): 30 s greedy with language='en',
-  30 s beam_size=5 with no language, 60 s batched greedy in a group
+  packed int4 cross K/V (``kv_quant=4``): 20 s greedy with language='en',
+  20 s beam_size=5 with no language, 60 s batched greedy in a group
   of 2 (the encoder's weight-only products at M = 3000), the 60-s
   ``align_words`` (64 flash, one DTW and the weight-only products at
   M = 8 x 1500), a refine of its result and a locate in mode 1, both of
-  which must launch ``woq_matmul``; then a greedy request on the first
-  20 s of that clip with STABLE_TS_TPU_WOQ=dyn (int8 activations x int8 weights through
+  which must launch ``woq_matmul``; then the 20-s greedy request again
+  with STABLE_TS_TPU_WOQ=dyn (int8 activations x int8 weights through
   ``torch._int_mm``), which must launch ``woq_matmul`` 0 times, its ms a
   step logged beside the default's;
 - train: a fresh bf16 model, three steps of ``make_train_step`` (AdamW as
@@ -107,10 +107,11 @@ step:
 - mesh two (last): two ranks spawned on the one card over gloo (NCCL
   refuses two ranks on one GPU; gloo reduces CUDA tensors through the
   host), each on cuda:0, on (dp 1, tp 2) and (dp 2, tp 1):
-  ``transcribe_batched`` greedy 60 s, ``align_words`` of 60 s and a
-  refine of it on f32 weights, held against this process's unsharded f32
-  runs (the same text and words, every start within 0.021 s), the greedy
-  on bf16 weights (its differences to the unsharded bf16 run logged),
+  ``transcribe_batched`` greedy 60 s at its full sample length,
+  ``align_words`` of 20 s and a refine of it on f32 weights, held
+  against this process's unsharded f32 runs (the same text and words,
+  every start within 0.021 s), the greedy on bf16 weights, 48 tokens a
+  window (its differences to the unsharded bf16 run logged),
   and two train steps of large-v3 cut to 4 + 4 layers (f32 losses within
   1e-4 relative); each rank must launch the kernels of each request at
   its shard's shapes, and both ranks return the same results; walls and
@@ -1243,14 +1244,14 @@ def main() -> int:
     from stable_ts_tpu_torch.audio.synth import synth_speech_like
     audio = synth_speech_like(155.0)
     ladder = (0.0, 0.4, 0.8)
-    beam_clip = audio[95 * SR:125 * SR]
+    beam_clip = audio[95 * SR:115 * SR]
     # (path, request label, clip, transcribe options, kernels the path must launch)
     paths = [
         ('greedy', [('75 s', audio[:75 * SR]), ('20 s', audio[75 * SR:95 * SR])],
          dict(language='en', temperature=0),
          ('flash_attn', 'self_attn_decode', 'cross_attn_decode', 'logit_epilogue',
           'dtw_cost')),
-        ('beam', [('30 s, no language, beam_size=5', beam_clip)],
+        ('beam', [('20 s, no language, beam_size=5', beam_clip)],
          dict(temperature=0, beam_size=5),
          ('flash_attn', 'self_attn_decode_beam', 'cross_attn_decode_group',
           'vocab_proj', 'dtw_cost')),
@@ -1358,9 +1359,9 @@ def main() -> int:
     if not dq_model.quantized:
         raise AssertionError('dq=True left the model unquantized')
     dq_paths = [
-        ('dq', [('30 s greedy, language=en, kv_quant=4', beam_clip,
+        ('dq', [('20 s greedy, language=en, kv_quant=4', beam_clip,
                  dict(language='en', temperature=0, kv_quant=4)),
-                ('30 s, no language, beam_size=5, kv_quant=4', beam_clip,
+                ('20 s, no language, beam_size=5, kv_quant=4', beam_clip,
                  dict(temperature=0, beam_size=5, kv_quant=4))],
          None,
          ('flash_attn', 'woq_matmul', 'self_attn_decode', 'cross_attn_decode_int4',
@@ -1370,7 +1371,7 @@ def main() -> int:
     dq_requests = []
     for name, n in drive_paths(torch, dq_model, dq_paths, ladder, dq_requests).items():
         counts[name] = counts.get(name, 0) + n
-    for name, n in dyn_request(torch, dq_model, beam_clip[:20 * SR], ladder,
+    for name, n in dyn_request(torch, dq_model, beam_clip, ladder,
                                dq_requests[0]).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in batched_paths(torch, [
@@ -1683,9 +1684,7 @@ def cli_paths(torch, pt: str, audio, tmp: str, greedy_20: dict) -> dict:
     wav20 = write_wav(os.path.join(tmp, 'clip20.wav'), audio[75 * SR:95 * SR])
     wav120 = write_wav(os.path.join(tmp, 'clip120.wav'), audio[:120 * SR])
     model_args = ['--model', pt, '--dtype', 'bfloat16', '--language', 'en']
-    # a three-rung fallback ladder (0, 0.4, 0.8), half the default's six
-    argv = [wav20, *model_args, '--output_format', ','.join(CLI_FORMATS),
-            '--temperature_increment_on_fallback', '0.4']
+    argv = [wav20, *model_args, '--output_format', ','.join(CLI_FORMATS)]
     out = {name: os.path.join(tmp, 'cli_' + name) for name in ('sub', 'main', 'extra')}
 
     torch.cuda.synchronize()
@@ -1738,7 +1737,7 @@ def cli_paths(torch, pt: str, audio, tmp: str, greedy_20: dict) -> dict:
 
     loaders.load_model = timed_load
     try:
-        main_wall, _, _ = request('the subprocess argv, 20 s (the ladder 0, 0.4, 0.8)',
+        main_wall, _, _ = request('the subprocess argv, 20 s (the fallback ladder)',
                                   argv + ['--output_dir', out['main'], '-y'], CLI_GREEDY,
                                   quiet=False)
         log(f'[cli] python -m stable_ts_tpu_torch (20 s, bf16, six formats) as a '
@@ -2888,9 +2887,11 @@ def mesh_one_dq_and_train(torch, dims, ranks, heads, mesh, long_audio,
 TRAIN_LAYERS = 4
 
 
-# a decode of the two-rank phase stops after 48 tokens a window: every step
-# there costs about 160 gloo all-reduces through the host at tp = 2
-TWO_RANK_SAMPLE_LEN = 48
+# the two-rank phase's bf16 greedy, which is logged and not gated, stops
+# after 48 tokens a window: every step there costs about 160 gloo
+# all-reduces through the host at tp = 2 (the gated f32 greedy runs its
+# full sample length)
+BF16_SAMPLE_LEN = 48
 
 
 def _summary(result) -> dict:
@@ -2904,15 +2905,18 @@ def _summary(result) -> dict:
 def _two_rank_requests(torch, model, audio, dtype_label: str):
     """The requests of the two-rank phase on ``model``, each with the
     launch counts reset before it and read after it: transcribe_batched
-    greedy 60 s (one group of 2 windows, 48 tokens a window); with f32
-    weights also ``align_words`` of 20 s (two 10-s segments) and a refine
-    of its result (``prob_threshold=0.0``). Returns {name: (summary,
-    wall, launches)}."""
+    greedy 60 s (one group of 2 windows; in bf16 48 tokens a window); with
+    f32 weights also ``align_words`` of 20 s (two 10-s segments) and a
+    refine of its result (``prob_threshold=0.0``). At 60 s the tp = 2
+    ``align_words`` starts part from the unsharded ones by up to 0.42 s:
+    a head score one bf16 step apart moves the DTW path over flat random
+    attention, shown by ``tools/torch_mesh_divergence.py`` (PERF.md §6).
+    Returns {name: (summary, wall, launches)}."""
     from stable_ts_tpu_torch import _build
     out, aligned = {}, []
     requests = [(f'greedy 60 s {dtype_label}', lambda: model.transcribe_batched(
         audio[:60 * SR], batch_size=2, language='en', temperature=0,
-        sample_len=TWO_RANK_SAMPLE_LEN, verbose=None))]
+        sample_len=None if dtype_label == 'f32' else BF16_SAMPLE_LEN, verbose=None))]
     if dtype_label == 'f32':
         clip = audio[:20 * SR]
         requests += [

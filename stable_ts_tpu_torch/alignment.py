@@ -433,14 +433,6 @@ def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _rows_in(model, x: np.ndarray) -> torch.Tensor:
-    """A refine round's host batch on the model's device: this rank's rows
-    on a mesh (``model.shard_batch``), else :func:`_upload`."""
-    if model.mesh is not None:
-        return model.shard_batch(x)[0]
-    return _upload(x, model.device)
-
-
 def _whisper_refinement_func(model, tokenizer) -> Callable:
     """(audio[2, T], tokens) -> token probs (2, n_tokens, vocab < eot), one
     probe at a time: the two muted rows' mel on the model's device, the
@@ -641,9 +633,9 @@ def _whisper_refinement_batch_func(model, tokenizer) -> Callable:
         slots = np.asarray(slot_list + [slot_list[-1]] * (a_b - len(probes)),
                            np.int64)
         stacked = _refine_round_fused(
-            model, state['clean'], state['t_real'], _rows_in(model, slots),
-            _rows_in(model, lo), _rows_in(model, hi),
-            _rows_in(model, tok_batch), tokenizer.eot)
+            model, state['clean'], state['t_real'], model.shard_batch(slots)[0],
+            model.shard_batch(lo)[0], model.shard_batch(hi)[0],
+            model.shard_batch(tok_batch)[0], tokenizer.eot)
         return (model.gather_batch(stacked, dim=1),
                 [2 * i for i in range(len(probes))], lengths)
 
@@ -711,9 +703,9 @@ def _whisper_refinement_batch_func(model, tokenizer) -> Callable:
             row_starts.append(r)
             tok_batch[r:r + a.shape[0], :len(row)] = row
             r += a.shape[0]
-        tokens_in = _rows_in(model, tok_batch)
-        mel_batch = _refine_mel_batch(_rows_in(model, audio_batch),
-                                      _rows_in(model, frames), model.dims.n_mels)
+        tokens_in = model.shard_batch(tok_batch)[0]
+        mel_batch = _refine_mel_batch(model.shard_batch(audio_batch)[0],
+                                      model.shard_batch(frames)[0], model.dims.n_mels)
         return (model.gather_batch(_probs_and_ranks(
                     model, mel_batch, tokens_in, tokenizer.eot), dim=1),
                 row_starts, lengths)

@@ -194,8 +194,12 @@ class WhisperTorch:
         # (the outputs are gathered in decode_collect), and an
         # out-of-memory error on any rank raises on every rank, so that
         # all of them retry together: a rank retrying alone would leave the
-        # others waiting in a collective. (The ranks of a tp group hold the
-        # same rows and shapes, so they run out of memory alike.)
+        # others waiting in a collective. The agreement comes after the
+        # decode, and at tp > 1 the decode runs tp all-reduces: it holds
+        # when every rank of a tp group raises (they allocate the same
+        # shapes in the same order), but a rank that raises alone leaves
+        # the rest of its tp group in their next all-reduce until the
+        # backend's timeout (ROADMAP.md section 3).
         from .parallel.mesh import all_ranks_agree, batch_rows, split_batch
         x = mel_or_features
         if x.ndim == 2:

@@ -345,15 +345,15 @@ def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,
 def _write_rows(cache: dict, layer: int, at, k: torch.Tensor, v: torch.Tensor,
                 group=None):
     """Store K/V rows at cache positions ``at`` of ``layer``: quantized to
-    int8 with their scales when the cache has them (the amax of a row split
-    over tp reduced over ``group``), else as they are."""
-    for name, t in (('k', k), ('v', v)):
-        if 'ks' in cache:
-            qt, sc = quantize_rows(t, group=group)
-            cache[name][layer, :, at] = qt
-            cache[name + 's'][layer, :, at] = sc
-        else:
-            cache[name][layer, :, at] = t
+    int8 with their scales when the cache has them (K and V in one call,
+    the amax of a row split over tp reduced over ``group`` in one
+    all-reduce), else as they are."""
+    if 'ks' in cache:
+        qt, sc = quantize_rows(torch.stack([k, v]), group=group)
+        cache['k'][layer, :, at], cache['v'][layer, :, at] = qt[0], qt[1]
+        cache['ks'][layer, :, at], cache['vs'][layer, :, at] = sc[0], sc[1]
+    else:
+        cache['k'][layer, :, at], cache['v'][layer, :, at] = k, v
 
 
 def fuse_self_qkv(decoder: TextDecoder):

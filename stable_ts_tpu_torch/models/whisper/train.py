@@ -26,6 +26,7 @@ from typing import Callable, Iterable, Optional
 import torch
 import torch.distributed as dist
 
+from ...parallel.mesh import split_batch
 from .dims import ModelDimensions
 from .model import Whisper, decoder_apply, encoder_apply
 from .quantization import is_quantized
@@ -33,24 +34,31 @@ from .quantization import is_quantized
 
 def cross_entropy_loss(model: Whisper, mel: torch.Tensor, tokens: torch.Tensor,
                        label_mask: Optional[torch.Tensor] = None,
-                       denominator: Optional[float] = None) -> torch.Tensor:
+                       denominator=None) -> torch.Tensor:
     """Teacher-forced next-token CE over the decoder (train.py:19-32).
     mel (B, n_mels, 3000); tokens (B, T) int; label_mask (B, T) or None.
-    Returns the 0-d f32 mean NLL of tokens[:, 1:] (over the mask's
-    positions [:, 1:] when one is given). ``denominator``: the (masked)
-    NLL's sum over it instead, a dp rank's share of the global mean."""
+    Returns the 0-d f32 NLL of tokens[:, 1:] (over the mask's positions
+    [:, 1:] when one is given) summed and divided by ``denominator``:
+    by default the count of those positions, so the mean; a dp rank
+    passes the global batch's count."""
     xa = encoder_apply(model.encoder, mel)
     logits, _ = decoder_apply(model.decoder, tokens[:, :-1], xa)
     logprobs = torch.log_softmax(logits.float(), dim=-1)
     nll = -logprobs.gather(-1, tokens[:, 1:, None])[..., 0]
-    if denominator is not None:
-        if label_mask is not None:
-            nll = nll * label_mask[:, 1:].float()
-        return nll.sum() / denominator
     if label_mask is not None:
-        mask = label_mask[:, 1:].float()
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    return nll.mean()
+        nll = nll * label_mask[:, 1:].float()
+    if denominator is None:
+        denominator = _count(nll, label_mask)
+    return nll.sum() / denominator
+
+
+def _count(targets: torch.Tensor, label_mask) -> torch.Tensor:
+    """The 0-d count of predicted positions: the ones of
+    ``label_mask[:, 1:]`` (at least 1), else the elements of ``targets``
+    (B, T - 1)."""
+    if label_mask is not None:
+        return label_mask[:, 1:].float().sum().clamp_min(1.0)
+    return torch.tensor(float(targets.numel()))
 
 
 def adamw(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
@@ -90,48 +98,31 @@ def make_train_step(dims: ModelDimensions,
         _check_model(model)
         device = model.decoder.token_emb.device
         mesh = model.mesh
-        if mesh is not None and mesh['dp'].size() > 1:
-            return _dp_step(model, opt, mesh, mel, tokens, label_mask)
-        mel = torch.as_tensor(mel).to(device)
-        tokens = torch.as_tensor(tokens).to(device=device, dtype=torch.long)
+        dp = 1 if mesh is None else mesh['dp'].size()
+        tokens = torch.as_tensor(tokens)
+        if tokens.shape[0] % dp:
+            raise ValueError(f'a batch of {tokens.shape[0]} rows does not split '
+                             f'over dp={dp}')
         if label_mask is not None:
-            label_mask = torch.as_tensor(label_mask).to(device)
+            label_mask = torch.as_tensor(label_mask)
+        # the global batch's count, then this rank's dp rows (all of them
+        # without a dp split)
+        denominator = _count(tokens[:, 1:], label_mask).to(device)
+        mel = split_batch(mel, mesh, device)[0]
+        tokens = split_batch(tokens, mesh, device)[0].long()
+        if label_mask is not None:
+            label_mask = split_batch(label_mask, mesh, device)[0]
         opt.zero_grad(set_to_none=True)
-        loss = cross_entropy_loss(model, mel, tokens, label_mask)
+        loss = cross_entropy_loss(model, mel, tokens, label_mask, denominator)
         loss.backward()
+        loss = loss.detach()
+        if dp > 1:
+            group = mesh.get_group('dp')
+            for p in model.parameters():
+                if p.grad is not None:
+                    dist.all_reduce(p.grad, group=group)
+            dist.all_reduce(loss, group=group)
         opt.step()
-        return loss.detach()
+        return loss
 
     return init_opt_state, train_step
-
-
-def _dp_step(model: Whisper, opt, mesh, mel, tokens, label_mask):
-    """The step on this rank's dp rows of the global batch (the batch must
-    split evenly): the loss over the global count, its gradients summed
-    over dp, the update; returns the global loss."""
-    from ...parallel.mesh import split_batch
-    device = model.decoder.token_emb.device
-    dp = mesh['dp'].size()
-    tokens = torch.as_tensor(tokens)
-    if tokens.shape[0] % dp:
-        raise ValueError(f'a batch of {tokens.shape[0]} rows does not split '
-                         f'over dp={dp}')
-    if label_mask is None:
-        denominator = float(tokens.shape[0] * (tokens.shape[1] - 1))
-    else:
-        label_mask = torch.as_tensor(label_mask)
-        denominator = max(float(label_mask[:, 1:].float().sum()), 1.0)
-        label_mask = split_batch(label_mask, mesh, device)[0]
-    mel = split_batch(mel, mesh, device)[0]
-    tokens = split_batch(tokens, mesh, device)[0].long()
-    opt.zero_grad(set_to_none=True)
-    loss = cross_entropy_loss(model, mel, tokens, label_mask, denominator)
-    loss.backward()
-    group = mesh.get_group('dp')
-    for p in model.parameters():
-        if p.grad is not None:
-            dist.all_reduce(p.grad, group=group)
-    opt.step()
-    loss = loss.detach()
-    dist.all_reduce(loss, group=group)
-    return loss

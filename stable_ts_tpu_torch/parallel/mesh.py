@@ -225,13 +225,18 @@ def split_batch(arr, mesh: Optional[DeviceMesh], device) -> Tuple[torch.Tensor, 
     """This rank's rows of ``arr`` (numpy or tensor) on ``device``, the
     batch padded to a dp multiple by repeating its last row, and the real
     row count (stable_ts_tpu/loaders.py:80-97). Without a mesh: all of
-    ``arr`` on ``device``."""
+    ``arr`` on ``device``. Host rows go to the card through pinned
+    memory."""
     t = (torch.from_numpy(np.ascontiguousarray(arr)) if isinstance(arr, np.ndarray)
          else torch.as_tensor(arr))
     n = t.shape[0]
     padded, lo, hi = batch_rows(n, mesh)
     if (lo, hi) != (0, n):
         t = t[torch.arange(lo, hi).clamp_(max=n - 1).to(t.device)]
+    if t.device.type == 'cpu' and torch.device(device).type == 'cuda':
+        # queued without waiting: an upload from pageable memory would wait
+        # for the work already queued on the card
+        return t.pin_memory().to(device, non_blocking=True), n
     return t.to(device), n
 
 

@@ -12,12 +12,10 @@ Both wrap the float ``nn.Linear`` or the int8 ``QuantizedLinear`` that
 """
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 
 from ..models.whisper.quantization import (QuantizedLinear, _woq_mode,
                                            dyn_linear)
-from ..ops.woq_matmul import woq_matmul
 
 
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -93,12 +91,8 @@ class RowParallelLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inner = self.inner
-        if isinstance(inner, QuantizedLinear):
-            if _woq_mode() == 'dyn':
-                return dyn_linear(x, inner.weight, inner.scale, self.bias,
-                                  group=self.group)
-            y = woq_matmul(x, inner.weight, inner.scale, None)
-        else:
-            y = F.linear(x, inner.weight)
-        y = reduce_from_group(y, self.group)
+        if isinstance(inner, QuantizedLinear) and _woq_mode() == 'dyn':
+            return dyn_linear(x, inner.weight, inner.scale, self.bias,
+                              group=self.group)
+        y = reduce_from_group(inner(x), self.group)
         return y if self.bias is None else y + self.bias

@@ -18,8 +18,9 @@ dp world, a ``best_of`` ladder whose every window is sampled. Besides: the mesh 
 weight shards, ``shard_batch``'s padding, ``dq``'s int8 cross K/V and
 self-cache codes equal to the unsharded port's (the amax all-reduce), a
 temperature-0.8 ``best_of`` decode whose draws do not change with dp,
-and an out-of-memory error on one rank that makes every rank halve the
-batch.
+and an out-of-memory error that makes every rank halve the batch: on one
+rank of the dp world before its decode, and on the two ranks of one tp
+group of the dp x tp world inside a decode step.
 """
 import os
 import pickle
@@ -137,7 +138,8 @@ def worlds(tmp_path_factory, audio, jax_models):
     root = tmp_path_factory.mktemp('parallel')
     four = World(root / 'four', 4, 2, ['placement', 'shard_batch', 'greedy',
                                        'beam2', 'dq', 'align', 'align_words',
-                                       'refine', 'no_heads', 'locate'], inputs)
+                                       'refine', 'no_heads', 'locate', 'oom_tp'],
+                 inputs)
     two = World(root / 'two', 2, 1, ['shard_batch', 'sampling', 'best_of', 'oom'],
                 inputs)
     return four, two
@@ -296,6 +298,18 @@ def test_out_of_memory_on_one_rank_halves_every_rank(results):
     for res in results[1]:
         oom = res['oom']
         assert 'error' not in oom, oom.get('error')
+        assert len(oom['warnings']) == 1
+        assert 'batch_size=2' in oom['warnings'][0]
+        assert oom['sharded'] == oom['plain']
+
+
+def test_out_of_memory_in_a_tp_group_halves_every_rank(results):
+    """dp row 0's tp group runs out of memory inside a decode step, after
+    a tp all-reduce, while dp row 1 decodes on: all four ranks halve."""
+    for rank, res in enumerate(results[0]):
+        oom = res['oom_tp']
+        assert 'error' not in oom, oom.get('error')
+        assert oom['raised'] == (rank < 2)
         assert len(oom['warnings']) == 1
         assert 'batch_size=2' in oom['warnings'][0]
         assert oom['sharded'] == oom['plain']

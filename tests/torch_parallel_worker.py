@@ -235,6 +235,49 @@ def check_oom(inp, mesh):
                           if 'out of memory' in str(w.message)])
 
 
+def check_oom_tp(inp, mesh):
+    """On the dp 2 x tp 2 mesh both ranks of dp row 0's tp group raise an
+    out-of-memory error in their first decode step, just after its first
+    tp all-reduce; dp row 1 decodes on to the agreement. Every rank must
+    halve the batch and finish with the unsharded transcript. (One rank
+    of a tp group raising alone would leave its peer in that group's next
+    all-reduce: the limitation ROADMAP.md section 3 states.)"""
+    from stable_ts_tpu_torch.models.whisper import decoding
+    audio = inp['audio'][:SR * 35]
+    plain = _words(_model(inp).transcribe_batched(audio, batch_size=4,
+                                                  temperature=0, verbose=None))
+    real_step, real_reduce = decoding.decoder_step, dist.all_reduce
+    state = dict(in_step=False, raised=False, reduces=0)
+
+    def step(*args, **kwargs):
+        state['in_step'] = True
+        try:
+            return real_step(*args, **kwargs)
+        finally:
+            state['in_step'] = False
+
+    def all_reduce(*args, **kwargs):
+        out = real_reduce(*args, **kwargs)
+        if state['in_step'] and not state['raised']:
+            state['reduces'] += 1
+            if mesh.get_local_rank('dp') == 0:
+                state['raised'] = True
+                raise torch.OutOfMemoryError('injected')
+        return out
+
+    decoding.decoder_step, dist.all_reduce = step, all_reduce
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            sharded = _words(_model(inp).shard(mesh).transcribe_batched(
+                audio, batch_size=4, temperature=0, verbose=None))
+    finally:
+        decoding.decoder_step, dist.all_reduce = real_step, real_reduce
+    return dict(plain=plain, sharded=sharded, raised=state['raised'],
+                warnings=[str(w.message) for w in caught
+                          if 'out of memory' in str(w.message)])
+
+
 def check_train(inp, mesh):
     """Two dp x tp train steps and two unsharded ones from the same
     weights: the losses, and (rank 0) the whole updated weights."""
