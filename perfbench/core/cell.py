@@ -1,0 +1,50 @@
+"""Everything of a cell, found by name under the benchmark's folder."""
+import importlib.util
+import json
+from pathlib import Path
+from typing import Callable
+
+HERE = Path(__file__).resolve().parents[1]          # perfbench/
+
+
+def _load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    if spec is None or not path.exists():
+        raise FileNotFoundError(f'no module at {path}')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+class Cell:
+    """A workload of BENCHMARK.json with its configuration, traffic mix,
+    traffic kind, metric readers and limits."""
+
+    def __init__(self, bench: dict, workload: str, root: Path):
+        cells = {w['name']: w for w in bench['workloads']}
+        if workload not in cells:
+            raise KeyError(f'no workload {workload!r} in BENCHMARK.json')
+        self.entry = cells[workload]
+        self.name = workload
+        configs = {c['name']: c for c in bench['configs']}
+        self.config = load_json(root / configs[self.entry['config']]['file'])
+        self.traffic = load_json(HERE / 'traffic' / f"{self.entry['traffic']}.json")
+        self.kind = _load_module(HERE / 'generators' / f"{self.traffic['kind']}.py",
+                                 f"perfbench_kind_{self.traffic['kind']}")
+        self.limits = load_json(HERE / 'limits' / f'{workload}.json')
+
+        def applies(m):
+            return 'workloads' not in m or workload in m['workloads']
+        self.end_to_end = [m for m in bench['end_to_end'] if applies(m)]
+        self.per_layer = [m for m in bench['per_layer'] if applies(m)]
+
+    @staticmethod
+    def reader(metric: str) -> Callable:
+        mod = _load_module(HERE / 'metrics' / f'{metric}.py',
+                           'perfbench_metric_' + metric.replace('.', '_'))
+        return mod.read
