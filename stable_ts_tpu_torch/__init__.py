@@ -16,8 +16,9 @@ the JAX package runs Pallas kernels on the TPU (flash attention and its
 backward, self- and cross-attention decode with their beam and
 window-group entries, the greedy logit epilogue, the DTW cost, the int8
 weight-only matmul of ``dq`` models, the streamed vocab projection).
-``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``
-(``profiling.py``). ``model.shard()`` spreads a model over several GPUs,
+``STABLE_TS_TPU_PROFILE`` traces a request with ``torch.profiler``, and
+``profiling.recording()`` keeps the program's own spans and counters in
+memory (``profiling.py``). ``model.shard()`` spreads a model over several GPUs,
 one process each (``parallel/``: a (dp, tp) mesh with Megatron tensor
 parallelism over tp and the batches' rows over dp). The ``stable-ts-tpu-torch`` command (``cli.py``, or
 ``python -m stable_ts_tpu_torch``) drives all of it from the shell, and a

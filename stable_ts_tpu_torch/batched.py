@@ -60,6 +60,7 @@ from .models.whisper.decoding import DecodingOptions
 from .ops.dtw import dtw_cost, dtw_jumps_batched
 from .ops.mel import log_mel_spectrogram
 from .parallel.mesh import batch_rows
+from . import profiling
 from .profiling import traced
 from .result import Segment, WhisperResult
 from .stabilization import NonSpeechPredictor
@@ -73,12 +74,22 @@ def _bucket(n: int, step: int = 64) -> int:
 
 
 # Host-phase accounting (seconds, cumulative since the last clear): the
-# host's share of a request, split by stage.
+# host's share of a request, split by stage. With the recorder on, each
+# phase is also a span (profiling.py).
 HOST_PHASES = {}
 
 
-def _hp(name: str, t0: float):
-    HOST_PHASES[name] = HOST_PHASES.get(name, 0.0) + time.perf_counter() - t0
+def _phase(name: str) -> int:
+    """The start of host phase ``name`` on the clock; :func:`_hp` ends it."""
+    t0 = time.perf_counter_ns()
+    profiling.open_at(name, t0)
+    return t0
+
+
+def _hp(name: str, t0: int):
+    t1 = time.perf_counter_ns()
+    HOST_PHASES[name] = HOST_PHASES.get(name, 0.0) + (t1 - t0) / 1e9
+    profiling.close_at(name, t1)
 
 
 def _next_token_probs(logits: torch.Tensor, tokens: torch.Tensor,
@@ -189,23 +200,24 @@ def transcribe_batched(model, audio, *, batch_size: int = 8, **kwargs
             f'capacity of {cap} windows for this model; using {cap}. Pass a '
             f'smaller batch_size to silence this.')
         batch_size = cap
-    while True:
-        try:
-            return _transcribe_batched_impl(model, audio,
-                                            batch_size=batch_size, **kwargs)
-        except torch.OutOfMemoryError as exc:
-            if batch_size <= 1:
-                raise
-            # the frames hold the failed attempt's groups and tensors
-            traceback.clear_frames(exc.__traceback__)
-        gc.collect()
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        batch_size = max(1, batch_size // 2)
-        warnings.warn(
-            f'device out of memory; retrying transcription with '
-            f'batch_size={batch_size} (pass a smaller batch_size to '
-            f'avoid the restart)')
+    with profiling.span('batched.request', request=True):
+        while True:
+            try:
+                return _transcribe_batched_impl(model, audio,
+                                                batch_size=batch_size, **kwargs)
+            except torch.OutOfMemoryError as exc:
+                if batch_size <= 1:
+                    raise
+                # the frames hold the failed attempt's groups and tensors
+                traceback.clear_frames(exc.__traceback__)
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            batch_size = max(1, batch_size // 2)
+            warnings.warn(
+                f'device out of memory; retrying transcription with '
+                f'batch_size={batch_size} (pass a smaller batch_size to '
+                f'avoid the restart)')
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -475,14 +487,14 @@ def _transcribe_batched_impl(
         buf = buf_t.numpy()
         metas, wins = [], []
         while len(wins) < batch_size:
-            _t0 = time.perf_counter()
+            _t0 = _phase('host_load')
             chunk, new_seek = loader.next_valid_chunk(seek_sample, N_SAMPLES)
             _hp('host_load', _t0)
             if chunk is None:
                 break
             seek_sample = new_seek
             offset = seek_sample / SAMPLE_RATE
-            _t0 = time.perf_counter()
+            _t0 = _phase('host_silence_predict')
             preds = predictor.predict(chunk, offset=offset)
             _hp('host_silence_predict', _t0)
             samples = int(chunk.shape[-1])
@@ -518,7 +530,7 @@ def _transcribe_batched_impl(
                 silence_timings=(preds['timings'] if suppress_silence
                                  else None),
                 ts_mask=(preds['mask'] if suppress_ts_tokens else None)))
-            _t0 = time.perf_counter()
+            _t0 = _phase('host_window_stack')
             row = buf[len(wins)]
             row[:samples] = chunk[..., :samples]
             if samples < win_row_len:
@@ -529,9 +541,11 @@ def _transcribe_batched_impl(
         if not wins:
             return None
         n = len(wins)
+        profiling.count('batched.windows_real', n)
+        profiling.count('batched.windows_padded', batch_size - n)
         if n < batch_size:
             # pad the tail group in place (repeat the last real row)
-            _t0 = time.perf_counter()
+            _t0 = _phase('host_window_stack')
             buf[n:] = buf[n - 1]
             _hp('host_window_stack', _t0)
         return _Group(metas, buf_t)
@@ -543,7 +557,7 @@ def _transcribe_batched_impl(
         nonlocal tokenizer, language, initial_prompt_tokens, first_group
         wins = grp.windows     # full-capacity persistent buffer, pre-padded
         grp.windows = None
-        _t0 = time.perf_counter()
+        _t0 = _phase('host_window_prep')
         if pcm_exact:
             # reverse the loader's /32768 (exact, see pcm_exact above) so
             # the upload moves int16; `wins` is consumed right here, so it
@@ -557,12 +571,13 @@ def _transcribe_batched_impl(
             np.copyto(buf.numpy(), wins.numpy(), casting='unsafe')
             wins = buf
         _hp('host_window_prep', _t0)
-        _t0 = time.perf_counter()
+        _t0 = _phase('host_upload_dispatch')
         wins = wins.to(device, non_blocking=True)
         mels = log_mel_spectrogram(wins, model.dims.n_mels)[..., :N_FRAMES]
         # on a mesh: each rank encodes its rows; the features come back
         # whole (JAX: shard_batch(mels), batched.py:589)
         grp.features = model.embed_audio(mels)
+        profiling.count('encoder.windows', len(grp.metas))
         _hp('host_upload_dispatch', _t0)
         if tokenizer is None:
             if language is None:
@@ -626,6 +641,7 @@ def _transcribe_batched_impl(
         n = len(grp.metas)
         results = model.decode_collect(grp.pending, with_features=False)[:n]
         grp.pending = None
+        profiling.count('decode.tokens_kept', sum(len(r.tokens) for r in results))
         for t in temperatures[1:]:
             pending_idx = [i for i, r in enumerate(results)
                            if _needs_fallback(r)]
@@ -650,7 +666,7 @@ def _transcribe_batched_impl(
             for i, r in zip(pending_idx, retry):
                 results[i] = r
         grp.results = results
-        _t0 = time.perf_counter()
+        _t0 = _phase('host_segmentize')
         grp.segments = [_segmentize(res, meta)
                         for res, meta in zip(results, grp.metas)]
         _hp('host_segmentize', _t0)
@@ -661,7 +677,7 @@ def _transcribe_batched_impl(
                    for r in results):
                 prompt_reset_since = len(all_tokens)
         if word_timestamps:
-            _t0 = time.perf_counter()
+            _t0 = _phase('host_timing_launch')
             grp.timing = _launch_word_timing(
                 model, tokenizer, grp.features, grp.metas, grp.segments,
                 dynamic_heads, aligner, batch_size, timing_stream,
@@ -729,13 +745,13 @@ def _transcribe_batched_impl(
     def finish_group(grp: _Group):
         """Host: wait for the timing pass, assemble words, suppress, emit."""
         if grp.timing is not None:
-            _t0 = time.perf_counter()
+            _t0 = _phase('host_timing_finish')
             _finish_word_timing(model, tokenizer, grp.timing, grp.metas,
                                 grp.segments, prepend_punctuations,
                                 append_punctuations, min_word_dur)
             _hp('host_timing_finish', _t0)
             grp.timing = None
-        _t0 = time.perf_counter()
+        _t0 = _phase('host_assemble_suppress')
         for meta, segs in zip(grp.metas, grp.segments):
             if word_timestamps:
                 segs = [s for s in segs if s.get('words')
@@ -778,29 +794,38 @@ def _transcribe_batched_impl(
     p_decode: Optional[_Group] = None
     p_timing: Optional[_Group] = None
     eof = False
+    n_groups = 0
     try:
         while True:
-            grp = None if eof else read_group()
-            if grp is None:
-                eof = True
-            if condition_on_previous_text:
-                # decode(g) needs g-1's text: collect it before launching
-                if p_decode is not None:
-                    finish_decode(p_decode)
-                done_grp, p_timing, p_decode = p_timing, p_decode, None
-                if grp is not None:
-                    launch_decode(grp)
-                    p_decode = grp
-                if done_grp is not None:
-                    finish_group(done_grp)
-            else:
-                if grp is not None:
-                    launch_decode(grp)
-                if p_decode is not None:
-                    finish_decode(p_decode)
-                if p_timing is not None:
-                    finish_group(p_timing)
-                p_timing, p_decode = p_decode, grp
+            # one pipeline step a span, named for the group it reads
+            with profiling.span('batched.group') as step:
+                grp = None if eof else read_group()
+                if grp is None:
+                    eof = True
+                else:
+                    if step:
+                        n = len(grp.metas)
+                        step.attrs.update(group=n_groups, rows=n,
+                                          padded=batch_size - n)
+                    n_groups += 1
+                if condition_on_previous_text:
+                    # decode(g) needs g-1's text: collect it before launching
+                    if p_decode is not None:
+                        finish_decode(p_decode)
+                    done_grp, p_timing, p_decode = p_timing, p_decode, None
+                    if grp is not None:
+                        launch_decode(grp)
+                        p_decode = grp
+                    if done_grp is not None:
+                        finish_group(done_grp)
+                else:
+                    if grp is not None:
+                        launch_decode(grp)
+                    if p_decode is not None:
+                        finish_decode(p_decode)
+                    if p_timing is not None:
+                        finish_group(p_timing)
+                    p_timing, p_decode = p_decode, grp
             if eof and p_decode is None and p_timing is None:
                 break
         progress_update(pbar, total_duration or 0.0)
@@ -817,7 +842,7 @@ def _transcribe_batched_impl(
         warnings.warn(f'Failed to {task} audio. Result contains no text.')
         return result
 
-    _t0 = time.perf_counter()
+    _t0 = _phase('host_result_build')
     text = ''.join(s['text'] for s in all_segments)
     final_result = WhisperResult(
         dict(text=text, segments=all_segments, language=language),
@@ -853,7 +878,7 @@ def _transcribe_batched_impl(
     elif final_nonspeech_timings is not None:
         final_result.update_nonspeech_sections(*final_nonspeech_timings)
     if word_timestamps and regroup:
-        _t0 = time.perf_counter()
+        _t0 = _phase('host_regroup')
         final_result.regroup(regroup)
         _hp('host_regroup', _t0)
     if progress_callback is not None and total_duration:
@@ -1047,7 +1072,8 @@ def _finish_word_timing(model, tokenizer, pending, metas,
     max_qk_lens, row_counts = pending['max_qk_lens'], pending['row_counts']
     n_todo = len(todo)
     if pending['ready'] is not None:
-        pending['ready'].synchronize()
+        with profiling.span('timing.wait'):
+            pending['ready'].synchronize()
     tok_probs_all = pending['tok_probs'].numpy()[:n_todo]
     jumps_np = dtw_jumps_batched(pending['cost'].numpy()[:n_todo], row_counts,
                                  max_qk_lens)

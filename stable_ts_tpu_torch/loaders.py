@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import profiling
 # load_faster_whisper is exported from here, as in stable_ts_tpu.loaders
 from .backends.faster_whisper import (is_faster_whisper_model, load_faster_whisper,
                                       modify_fw_model)
@@ -145,13 +146,16 @@ class WhisperTorch:
     def embed_audio(self, mel) -> torch.Tensor:
         """mel (n_mels, 3000) or (B, n_mels, 3000) -> features (B, 1500, d).
         On a dp mesh each rank encodes its rows and the features are
-        gathered: every rank returns all B."""
+        gathered: every rank returns all B. With the recorder on, a span
+        ``encoder`` whose device time, on the card, goes to counter
+        ``encoder.device_ms`` (``profiling.py``)."""
         if mel.ndim == 2:
             mel = mel[None]
-        if not self._dp_split():
-            return encoder_apply(self.params.encoder, self._on_device(mel))
-        mel_in, n = self.shard_batch(mel)
-        return self.gather_batch(encoder_apply(self.params.encoder, mel_in))[:n]
+        with profiling.span('encoder', device_time=self.device.type == 'cuda'):
+            if not self._dp_split():
+                return encoder_apply(self.params.encoder, self._on_device(mel))
+            mel_in, n = self.shard_batch(mel)
+            return self.gather_batch(encoder_apply(self.params.encoder, mel_in))[:n]
 
     def decode(self, mel_or_features, options: Optional[DecodingOptions] = None,
                ts_silence_mask=None, language: Optional[str] = None,

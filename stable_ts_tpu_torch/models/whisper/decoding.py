@@ -48,6 +48,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ... import profiling
 from ...ops.logit_epilogue import (fused_logit_aggregates, logit_aggregates,
                                    select_from_aggregates)
 from .model import (decoder_apply, decoder_prefill, decoder_step,
@@ -276,25 +277,33 @@ def _greedy_loop(step, filt, logits, epilogue, *, sample_begin: int,
     sum_logprobs = torch.zeros(rows, dtype=torch.float32, device=logits.device)
     sampled = []
     for i in range(sample_len):
-        next_tok, tok_logprob = select_from_aggregates(agg, with_grammar)
-        sum_logprobs += torch.where(finished, 0.0, tok_logprob)
-        next_tok = torch.where(finished, eot, next_tok)
-        sampled.append(next_tok)
-        max_ts = _advance_grammar(next_tok, finished, max_ts, ts_begin)
-        finished = finished | (next_tok == eot)
-        if i + 1 == sample_len or bool(finished.all()):
-            break
-        # the grammar flags of step i + 1 (LogitFilter with last = next_tok)
-        last_was_ts = next_tok >= ts_begin
-        penult_was_ts = (last_tok >= ts_begin) | (i + 1 < 2)
-        text_ban = last_was_ts & ~penult_was_ts
-        ts_ban = last_was_ts & penult_was_ts
-        ts_floor = torch.where(text_ban, max_ts, max_ts + 1)
-        flags = torch.stack([text_ban.long(), ts_ban.long(), (max_ts >= 0).long(),
-                             ts_floor], dim=1).int()
-        hidden = step(next_tok[:, None], sample_begin + i, return_hidden=True)
-        agg = epilogue(hidden, flags)
-        last_tok = next_tok
+        # a step's span less its one host read is the host queuing its work
+        with profiling.span('decode.step'):
+            next_tok, tok_logprob = select_from_aggregates(agg, with_grammar)
+            sum_logprobs += torch.where(finished, 0.0, tok_logprob)
+            next_tok = torch.where(finished, eot, next_tok)
+            sampled.append(next_tok)
+            max_ts = _advance_grammar(next_tok, finished, max_ts, ts_begin)
+            finished = finished | (next_tok == eot)
+            if i + 1 == sample_len:
+                break
+            with profiling.span('decode.sync_wait'):
+                done = bool(finished.all())
+            if done:
+                break
+            # the grammar flags of step i + 1 (LogitFilter with last = next_tok)
+            last_was_ts = next_tok >= ts_begin
+            penult_was_ts = (last_tok >= ts_begin) | (i + 1 < 2)
+            text_ban = last_was_ts & ~penult_was_ts
+            ts_ban = last_was_ts & penult_was_ts
+            ts_floor = torch.where(text_ban, max_ts, max_ts + 1)
+            flags = torch.stack([text_ban.long(), ts_ban.long(),
+                                 (max_ts >= 0).long(), ts_floor], dim=1).int()
+            hidden = step(next_tok[:, None], sample_begin + i, return_hidden=True)
+            agg = epilogue(hidden, flags)
+            last_tok = next_tok
+    profiling.count('decode.steps', len(sampled))
+    profiling.count('decode.row_steps', rows * len(sampled))
     return torch.stack(sampled, dim=1), sum_logprobs
 
 
@@ -514,70 +523,71 @@ def decode_launch(model, dims, tokenizer, mel_or_features: torch.Tensor,
     past the count repeat the last); the sampler then draws every global
     row's noise and keeps this batch's."""
     xa = audio_features(model, dims, mel_or_features)
-    device = xa.device
-    batch = xa.shape[0]
-    dec = model.decoder
-    use_beam = options.beam_size is not None and options.temperature == 0
-    if use_beam:
-        n_group = options.beam_size
-    else:
-        n_group = (options.best_of
-                   if options.best_of and options.temperature > 0 else 1)
-    rows = batch * n_group
+    with profiling.span('decode.prefill'):
+        device = xa.device
+        batch = xa.shape[0]
+        dec = model.decoder
+        use_beam = options.beam_size is not None and options.temperature == 0
+        if use_beam:
+            n_group = options.beam_size
+        else:
+            n_group = (options.best_of
+                       if options.best_of and options.temperature > 0 else 1)
+        rows = batch * n_group
 
-    initial_tokens, sot_index, sample_begin = build_initial_tokens(
-        tokenizer, options, dims.n_text_ctx)
-    sample_len = options.sample_len or (dims.n_text_ctx // 2)
-    sample_len = int(min(sample_len, dims.n_text_ctx - sample_begin - 1))
+        initial_tokens, sot_index, sample_begin = build_initial_tokens(
+            tokenizer, options, dims.n_text_ctx)
+        sample_len = options.sample_len or (dims.n_text_ctx // 2)
+        sample_len = int(min(sample_len, dims.n_text_ctx - sample_begin - 1))
 
-    suppress = np.zeros(dims.n_vocab, np.float32)
-    suppress[build_suppress_list(tokenizer, options)] = _NEG
-    suppress[tokenizer.no_timestamps] = _NEG
-    blank = np.zeros(dims.n_vocab, np.float32)
-    blank[tokenizer.encode(' ') + [tokenizer.eot]] = _NEG
-    ts_begin, eot = tokenizer.timestamp_begin, tokenizer.eot
-    ts_mask = None
-    if ts_silence_mask is not None:
-        sm = np.asarray(ts_silence_mask, bool)
-        if sm.ndim == 1:
-            sm = sm[None].repeat(batch, 0)
-        sm = np.repeat(sm, n_group, axis=0)
-        width = min(sm.shape[-1], dims.n_vocab - ts_begin)
-        mask = np.zeros((rows, dims.n_vocab), np.float32)
-        mask[:, ts_begin:ts_begin + width] = np.where(sm[:, :width], _NEG, 0.0)
-        ts_mask = torch.from_numpy(mask).to(device)
-    if options.max_initial_timestamp and not options.without_timestamps:
-        max_initial_ts_index = round(options.max_initial_timestamp / 0.02)
-    else:
-        max_initial_ts_index = -1
-    suppress_t = torch.from_numpy(suppress).to(device)
-    filt = LogitFilter(
-        dims.n_vocab, eot, ts_begin, suppress_t,
-        torch.from_numpy(blank).to(device), ts_mask, options.suppress_blank,
-        options.without_timestamps, max_initial_ts_index)
+        suppress = np.zeros(dims.n_vocab, np.float32)
+        suppress[build_suppress_list(tokenizer, options)] = _NEG
+        suppress[tokenizer.no_timestamps] = _NEG
+        blank = np.zeros(dims.n_vocab, np.float32)
+        blank[tokenizer.encode(' ') + [tokenizer.eot]] = _NEG
+        ts_begin, eot = tokenizer.timestamp_begin, tokenizer.eot
+        ts_mask = None
+        if ts_silence_mask is not None:
+            sm = np.asarray(ts_silence_mask, bool)
+            if sm.ndim == 1:
+                sm = sm[None].repeat(batch, 0)
+            sm = np.repeat(sm, n_group, axis=0)
+            width = min(sm.shape[-1], dims.n_vocab - ts_begin)
+            mask = np.zeros((rows, dims.n_vocab), np.float32)
+            mask[:, ts_begin:ts_begin + width] = np.where(sm[:, :width], _NEG, 0.0)
+            ts_mask = torch.from_numpy(mask).to(device)
+        if options.max_initial_timestamp and not options.without_timestamps:
+            max_initial_ts_index = round(options.max_initial_timestamp / 0.02)
+        else:
+            max_initial_ts_index = -1
+        suppress_t = torch.from_numpy(suppress).to(device)
+        filt = LogitFilter(
+            dims.n_vocab, eot, ts_begin, suppress_t,
+            torch.from_numpy(blank).to(device), ts_mask, options.suppress_blank,
+            options.without_timestamps, max_initial_ts_index)
 
-    # the cache holds every position the sampler can write, rounded up to 128
-    cache_len = min(dims.n_text_ctx, (sample_begin + sample_len + 128) // 128 * 128)
-    tokens0 = torch.tensor([initial_tokens] * rows, dtype=torch.long,
-                           device=device)
-    # every row of a window group prefills from the window's features; the
-    # cross K/V are kept once per window
-    xa_rows = xa.repeat_interleave(n_group, dim=0) if n_group > 1 else xa
-    prefill_logits, cache = decoder_prefill(dec, tokens0, xa_rows, cache_len)
-    kv_quant = (dims.n_audio_state >= 1024 if options.kv_quant is None
-                else options.kv_quant)
-    step = partial(decoder_step, dec, cross_kv=precompute_cross_kv_t(
-        dec, xa, quantize=kv_quant), cache=cache, fused_qkv=fuse_self_qkv(dec),
-        q_per_kv=n_group)
-    # stays on the device: a download here would wait for the prefill
-    no_speech = torch.softmax(prefill_logits[:, sot_index], dim=-1)[
-        :, tokenizer.no_speech].float()
-    logits = prefill_logits[:, -1]
-    loop = dict(sample_begin=sample_begin, sample_len=sample_len, eot=eot,
-                ts_begin=ts_begin)
-    pending = partial(PendingDecode, xa=xa, n_group=n_group,
-                      options=options, tokenizer=tokenizer,
-                      no_speech_probs=no_speech, sample_len=sample_len)
+        # the cache holds every position the sampler can write, rounded up to 128
+        cache_len = min(dims.n_text_ctx, (sample_begin + sample_len + 128) // 128 * 128)
+        tokens0 = torch.tensor([initial_tokens] * rows, dtype=torch.long,
+                               device=device)
+        # every row of a window group prefills from the window's features; the
+        # cross K/V are kept once per window
+        xa_rows = xa.repeat_interleave(n_group, dim=0) if n_group > 1 else xa
+        prefill_logits, cache = decoder_prefill(dec, tokens0, xa_rows, cache_len)
+        kv_quant = (dims.n_audio_state >= 1024 if options.kv_quant is None
+                    else options.kv_quant)
+        step = partial(decoder_step, dec, cross_kv=precompute_cross_kv_t(
+            dec, xa, quantize=kv_quant), cache=cache, fused_qkv=fuse_self_qkv(dec),
+            q_per_kv=n_group)
+        # stays on the device: a download here would wait for the prefill
+        no_speech = torch.softmax(prefill_logits[:, sot_index], dim=-1)[
+            :, tokenizer.no_speech].float()
+        logits = prefill_logits[:, -1]
+        loop = dict(sample_begin=sample_begin, sample_len=sample_len, eot=eot,
+                    ts_begin=ts_begin)
+        pending = partial(PendingDecode, xa=xa, n_group=n_group,
+                          options=options, tokenizer=tokenizer,
+                          no_speech_probs=no_speech, sample_len=sample_len)
 
     if use_beam:
         max_candidates = int(math.ceil(n_group * (options.patience or 1.0)))
@@ -636,37 +646,39 @@ def decode_collect(pending: PendingDecode,
     DecodingResults (decoding.py:871-928). ``with_features=False`` leaves
     ``audio_features`` None: the batched driver keeps the group's features
     itself."""
-    options, tokenizer = pending.options, pending.tokenizer
-    n_group, eot = pending.n_group, tokenizer.eot
-    outputs, no_speech = pending.outputs, pending.no_speech_probs
-    if pending.gather is not None:
-        outputs, no_speech = _gather_outputs(pending)
-    no_speech = no_speech.cpu().numpy()
-    if pending.kind == 'beam':
-        tokens_np, cum_np, fin_tok_np, fin_sc_np = (
-            t.cpu().numpy() for t in outputs)
-        chosen = [(b * n_group, seq, avg) for b, (seq, avg) in enumerate(
-            _finalize_beam(tokens_np, cum_np, fin_tok_np, fin_sc_np, n_group,
-                           options.length_penalty, eot))]
-    else:
-        tokens, sum_logprobs = outputs
-        chosen = select_best_of(tokens.cpu().numpy(), sum_logprobs.cpu().numpy(),
-                                n_group, eot, options.length_penalty)
+    with profiling.span('decode.collect'):
+        options, tokenizer = pending.options, pending.tokenizer
+        n_group, eot = pending.n_group, tokenizer.eot
+        outputs, no_speech = pending.outputs, pending.no_speech_probs
+        if pending.gather is not None:
+            outputs, no_speech = _gather_outputs(pending)
+        no_speech = no_speech.cpu().numpy()
+        profiling.read_device_times()
+        if pending.kind == 'beam':
+            tokens_np, cum_np, fin_tok_np, fin_sc_np = (
+                t.cpu().numpy() for t in outputs)
+            chosen = [(b * n_group, seq, avg) for b, (seq, avg) in enumerate(
+                _finalize_beam(tokens_np, cum_np, fin_tok_np, fin_sc_np, n_group,
+                               options.length_penalty, eot))]
+        else:
+            tokens, sum_logprobs = outputs
+            chosen = select_best_of(tokens.cpu().numpy(), sum_logprobs.cpu().numpy(),
+                                    n_group, eot, options.length_penalty)
 
-    xa = pending.xa if with_features else None
-    results = []
-    language = tokenizer.language or 'en'
-    for b, (row, seq, avg_logprob) in enumerate(chosen):
-        text_tokens = [int(t) for t in seq]
-        text = tokenizer.decode([t for t in text_tokens if t < eot]).strip()
-        results.append(DecodingResult(
-            audio_features=xa[b] if xa is not None else None,
-            language=language,
-            tokens=text_tokens,
-            text=text,
-            avg_logprob=avg_logprob,
-            no_speech_prob=float(no_speech[row]),
-            temperature=options.temperature,
-            compression_ratio=compression_ratio(text),
-        ))
+        xa = pending.xa if with_features else None
+        results = []
+        language = tokenizer.language or 'en'
+        for b, (row, seq, avg_logprob) in enumerate(chosen):
+            text_tokens = [int(t) for t in seq]
+            text = tokenizer.decode([t for t in text_tokens if t < eot]).strip()
+            results.append(DecodingResult(
+                audio_features=xa[b] if xa is not None else None,
+                language=language,
+                tokens=text_tokens,
+                text=text,
+                avg_logprob=avg_logprob,
+                no_speech_prob=float(no_speech[row]),
+                temperature=options.temperature,
+                compression_ratio=compression_ratio(text),
+            ))
     return results
