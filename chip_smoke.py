@@ -6,6 +6,12 @@ a synthetic rank table the size of the multilingual vocabulary) through
 ``WhisperTorch.transcribe`` and ``transcribe_batched``, and the train
 step:
 
+- step graph (``step_graph_checks``): the greedy step's CUDA graph at
+  the main path's shapes: the device-position self entry and the indirect
+  cross entry against their twins and bit for bit against the int and
+  direct entries, then a replayed 32-row greedy group whose profile must
+  show those two kernel instantiations once a layer a replay, equal to
+  the eager group bit for bit;
 - greedy: 75 s and 20 s with language='en', temperature=0 (the logit
   epilogue on every step);
 - beam: 20 s with no language (detect_language) and beam_size=5 (the vocab
@@ -566,6 +572,125 @@ def kernel_checks(torch, results: dict) -> None:
     flash_bwd_checks(torch, results, randn)
     batched_kernel_checks(torch, results, randn, gen)
     shard_kernel_checks(torch, results, randn, gen)
+
+
+def step_graph_checks(torch, model, results: dict) -> None:
+    """The greedy step's CUDA graph path (models/whisper/step_graph.py) at
+    the main path's shapes: the self entry given its position as a 0-d
+    int64 on the device (32 rows, cache 256, d 1280, int8, pos 200) and the
+    g = 1 cross entry given its K/V and scale buffers' addresses on the
+    device (32 rows, 1500 keys, int8), each held against its twin and bit
+    for bit against the entry given the int or the buffers; then a 32-row
+    greedy group of the model whose steps replay a captured graph, under
+    torch.profiler: each replay must run those two kernel instantiations
+    once a layer (and the int and direct ones never), and the group's
+    tokens and summed log-probabilities must equal the eager loop's."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stable_ts_tpu_torch import profiling
+    from stable_ts_tpu_torch.models.whisper import decoding, step_graph
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops import cross_attn, self_attn
+    gen = torch.Generator(device='cuda').manual_seed(18)
+    rows, d, h, lay = 32, 1280, 20, 1
+    scale = (d // h) ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda')
+
+    # the self entry: layer 1 of a (2, 32, 256, 1280) int8 cache, so the
+    # strides are the decode's
+    (kc, ks), (vc, vs) = quantize_rows(randn(2, rows, 256, d)), quantize_rows(
+        randn(2, rows, 256, d))
+    q = randn(rows, d) * scale
+    what = 'int8 cache (32 rows, 256, 1280), pos 200 on the device'
+    args = (q, kc[lay], vc[lay], ks[lay], vs[lay])
+    pos = torch.tensor(200, device='cuda')
+    got = self_attn.self_attn_decode(*args, pos, h)
+    want = self_attn.self_attn_decode(*args, 200, h)
+    ref = self_attn.self_attn_decode_ref(*args, 200, h)
+    torch.cuda.synchronize()
+    err = check('self_attn_decode', got, ref, 1e-4, what)
+    if not torch.equal(got, want):
+        raise AssertionError(f'self_attn_decode {what}: differs from the int position')
+    ms = device_ms(lambda: self_attn.self_attn_decode(*args, pos, h), iters=200)
+    ms_int = device_ms(lambda: self_attn.self_attn_decode(*args, 200, h), iters=200)
+    log(f'[kernel] self_attn_decode {what}: bit-identical to the int position; '
+        f'device kernel {ms:.4f} ms, the int position {ms_int:.4f} ms')
+    results['self_attn_decode']['device_pos'] = entry(
+        err, ms, None, 2 * 201 * (d + 4) * rows + nbytes(q, got), 4 * 201 * d * rows, 'f32')
+
+    # the cross entry: layer 1 of (2, 32, 2, 1500, 1280) int8 K/V, read
+    # through addresses on the device; the layout tensors hold other values
+    kv, sc = quantize_rows(randn(2, rows, 2, 1500, d))
+    layout_kv, layout_sc = quantize_rows(randn(2, rows, 2, 1500, d))
+    bases = torch.tensor([kv.data_ptr(), sc.data_ptr()], device='cuda')
+    q = randn(rows, d) * scale
+    what = 'int8 kv (32 rows, 1500, 1280), buffers read on the device'
+    got = cross_attn.cross_attn_decode_indirect(q, layout_kv, layout_sc, bases, lay, 1500, h)
+    want = cross_attn.cross_attn_decode(q, kv, sc, lay, 1500, h)
+    ref = cross_attn.cross_attn_decode_ref(q, kv[lay, :, 0], kv[lay, :, 1], sc[lay, :, 0],
+                                           sc[lay, :, 1], 1500, h)
+    torch.cuda.synchronize()
+    err = check('cross_attn_decode', got, ref, 1e-3, what)
+    if not torch.equal(got, want):
+        raise AssertionError(f'cross_attn_decode {what}: differs from the direct entry')
+    ms = device_ms(lambda: cross_attn.cross_attn_decode_indirect(
+        q, layout_kv, layout_sc, bases, lay, 1500, h), iters=200)
+    ms_direct = device_ms(lambda: cross_attn.cross_attn_decode(q, kv, sc, lay, 1500, h),
+                          iters=200)
+    log(f'[kernel] cross_attn_decode {what}: bit-identical to the direct entry; '
+        f'device kernel {ms:.4f} ms, direct {ms_direct:.4f} ms')
+    results['cross_attn_decode']['bases'] = entry(
+        err, ms, None, nbytes(kv[lay], sc[lay], q, got), 4 * 1500 * d * rows, 'bf16')
+    del kc, vc, ks, vs, kv, sc, layout_kv, layout_sc
+
+    # a 32-row greedy group: captured in a first decode, replayed in a
+    # second under the profiler, then the same group eagerly
+    dims = model.dims
+    feats = randn(rows, 1500, dims.n_audio_state).to(torch.bfloat16)
+    options = decoding.DecodingOptions(language='en', temperature=0.0, sample_len=100)
+    model.params.decoder._step_graph = None
+    model.decode_launch(feats, options)
+    torch.cuda.synchronize()
+    with profiling.recording() as rec, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graphed = model.decode_launch(feats, options).outputs
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    replays = rec.counters.get('decode.graph_replays', 0)
+    eager_steps = rec.counters.get('decode.eager_steps', 0)
+    seen = {}
+    for e in prof.key_averages():
+        m = re.search(r'(decode_attn_kernel|cross_cluster_kernel)<([^>]*)>', e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            key = f'{m.group(1)}<{m.group(2)}>'
+            seen[key] = seen.get(key, 0) + e.count
+    log(f'[step graph] replayed group: {replays} replays, {eager_steps} eager steps, '
+        f'{rec.counters.get("decode.graph_captures", 0)} captures; decode kernels seen '
+        f'by the profiler: {seen}')
+    layers = dims.n_text_layer
+    want_seen = {'decode_attn_kernel<signed char, 64, false, true>': layers * replays,
+                 'cross_cluster_kernel<signed char, 64, true>': layers * replays}
+    if replays != graphed[0].shape[1] - 1 or not replays or eager_steps or seen != want_seen:
+        raise AssertionError(f'step graph: a replayed group ran {seen} in {replays} '
+                             f'replays and {eager_steps} eager steps, not {want_seen}')
+    real = step_graph.graphable
+    step_graph.graphable = lambda *a, **k: False
+    try:
+        t0 = time.perf_counter()
+        eager = model.decode_launch(feats, options).outputs
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
+    finally:
+        step_graph.graphable = real
+    same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    log(f'[step graph] 32-row greedy group, {graphed[0].shape[1]} tokens: graphed '
+        f'{wall:.3f} s (under the profiler), eager {eager_wall:.3f} s; tokens and '
+        f'summed log-probabilities bit-identical: {same}')
+    if not same:
+        raise AssertionError('step graph: the replayed group differs from the eager one')
 
 
 def batched_kernel_checks(torch, results: dict, randn, gen) -> None:
@@ -1240,6 +1365,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f'[model] {model} built in {time.perf_counter() - t0:.1f} s, '
         f'{len(model.alignment_heads)} alignment heads')
+    step_graph_checks(torch, model, results)
 
     from stable_ts_tpu_torch.audio.synth import synth_speech_like
     audio = synth_speech_like(155.0)

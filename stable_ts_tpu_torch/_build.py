@@ -18,8 +18,10 @@ ptxas reports each kernel's registers, spills and shared memory (``-Xptxas
 (:func:`kernel_resources` reads it).
 
 ``launches`` counts kernel launches per wrapper: each wrapper in ``ops/``
-adds one where it launches its kernel, and nowhere else, so a run can show
-that the main path went through the kernels.
+adds one where it launches its kernel, so a run can show that the main
+path went through the kernels. A replay of a captured CUDA graph adds the
+launches its capture counted (``models/whisper/step_graph.py``), so the
+counts are those of the eager calls it stands for.
 """
 import collections
 import ctypes
@@ -61,15 +63,21 @@ _SIGNATURES = {
     'flash_attn_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     # q, k, v, k_scale, v_scale, out, cache dtype, B, H, dh, n_keys,
-    # kv batch stride, kv row stride, scale batch stride, stream
+    # kv batch stride, kv row stride, scale batch stride, then the position
+    # as a device int64 (or null: n_keys then counts the keys), stream
     'self_attn_decode': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _P],
+                         _LL, _LL, _LL, _P, _P],
+    # ... as self_attn_decode to the scale batch stride, then the buffers'
+    # addresses as a device array (or null: k, v and the scales are
+    # addresses, not offsets), stream
     'cross_attn_decode': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _LL, _LL, _LL, _P],
-    # ... as self_attn_decode, then anc, anc row stride, g, stream
+                          _LL, _LL, _LL, _P, _P],
+    # ... as self_attn_decode to the scale batch stride, then anc, anc row
+    # stride, g, stream
     'self_attn_decode_beam': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _LL, _LL, _LL, _P, _LL, _I, _P],
-    # ... as cross_attn_decode (batch = windows), then g, stream
+    # ... as self_attn_decode to the scale batch stride (batch = windows),
+    # then g, stream
     'cross_attn_decode_group': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _LL, _LL, _LL, _I, _P],
     # x, emb, suppress, silence, silence row stride, flags, scratch, out,

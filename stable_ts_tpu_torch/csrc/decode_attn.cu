@@ -45,7 +45,14 @@
 //   4. one block barrier, then the 8 warps' (max, sum, o) merge in warp
 //      order: no atomics, reruns are bit-identical.
 // All math is f32, as the XLA cache path computes it; the twin's single
-// softmax and this per-warp one differ only in f32 rounding.
+// softmax and this per-warp one differ only in f32 rounding. The self entry
+// may read its position from device memory (pos_dev), so that one captured
+// CUDA graph of the greedy step replays at every position: the launch is
+// then sized for the whole cache, and each warp takes its share of the
+// position's keys in the kernel, the same shares and chunks as a launch
+// given that position on the host, so the two give the same bits. The
+// g = 1 cross entry may likewise read its K/V and scale buffers' addresses
+// from device memory (bases), so the graph reads each group's new buffers.
 //
 // cross_cluster_kernel (both cross entries, every K/V type): a block per
 // (chunk of keys, head, window and chunk of up to GMAX of its g query rows),
@@ -237,14 +244,15 @@ __device__ __forceinline__ void issue_chunk(uint8_t* kb, int chw, const T* __res
   cp_async_commit();
 }
 
-template <typename T, int DH, bool BEAM>
+template <typename T, int DH, bool BEAM, bool DEV_POS>
 __global__ void __launch_bounds__(ROW_THREADS)
 decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ ks,
                    const float* __restrict__ vs, float* __restrict__ out,
                    int n_head, int n_keys, long long kv_bs, long long kv_rs,
                    long long sc_bs, const int* __restrict__ anc,
-                   long long anc_rs, int g, int chw, int nbuf) {
+                   long long anc_rs, int g, int chw, int nbuf,
+                   const long long* __restrict__ pos_dev) {
   constexpr int RB = Slice<T, DH>::BYTES;
   constexpr int PPR = RB / 16;               // 16-byte pieces of a head's row
   constexpr int VN = Vec16<T>::N;            // values of a piece
@@ -263,6 +271,11 @@ decode_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int d = n_head * DH;
+  // a position read on the device (a captured graph replays at every
+  // position): n_keys was the cache length, which sized chw, nbuf and the
+  // shared memory; the keys are the position's
+  if constexpr (DEV_POS)
+    n_keys = static_cast<int>(min(max(*pos_dev + 1, 1LL), static_cast<long long>(n_keys)));
   const int per = (n_keys + ROW_WARPS - 1) / ROW_WARPS;
   const int j_begin = min(warp * per, n_keys);
   const int total = min(per, n_keys - j_begin);   // this warp's keys (may be 0)
@@ -391,12 +404,13 @@ struct Published {
   float o[GMAX][DH];              // the chunk's unnormalized weighted V sum
 };
 
-template <typename T, int DH>
+template <typename T, int DH, bool INDIRECT>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DEC_THREADS)
 cross_cluster_kernel(const float* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ ks,
                      const float* __restrict__ vs, float* __restrict__ out, int n_head,
-                     int n_keys, long long kv_bs, long long kv_rs, long long sc_bs, int g) {
+                     int n_keys, long long kv_bs, long long kv_rs, long long sc_bs, int g,
+                     const char* const* __restrict__ bases) {
   constexpr int RB = Slice<T, DH>::BYTES;
   // scores: 16-byte chunks (8-byte for int4, so a chunk holds 16 values as
   // int8's does and the GMAX sums beside it stay in registers), CPR lanes per
@@ -421,6 +435,17 @@ cross_cluster_kernel(const float* __restrict__ q, const T* __restrict__ k,
   __shared__ float mx[GMAX];
   __shared__ Published<DH> pub;
 
+  // the buffers' addresses read on the device (a captured graph reads each
+  // group's cross K/V): k and v are then byte offsets into bases[0], ks
+  // and vs into bases[1]
+  if constexpr (INDIRECT) {
+    const char* kvb = bases[0];
+    const char* scb = bases[1];
+    k = reinterpret_cast<const T*>(kvb + reinterpret_cast<size_t>(k));
+    v = reinterpret_cast<const T*>(kvb + reinterpret_cast<size_t>(v));
+    ks = reinterpret_cast<const float*>(scb + reinterpret_cast<size_t>(ks));
+    vs = reinterpret_cast<const float*>(scb + reinterpret_cast<size_t>(vs));
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -622,13 +647,16 @@ struct DecodeArgs {
   long long anc_rs;
   int g;
   cudaStream_t stream;
+  const long long* pos_dev;   // the self entry's position on the device, or null
+  const char* const* bases;   // the g = 1 cross entry's buffer addresses, or null
 };
 
-template <typename T, int DH, bool BEAM>
+template <typename T, int DH, bool BEAM, bool DEV_POS>
 int launch_rows_dh(const DecodeArgs& a) {
   constexpr int RB = Slice<T, DH>::BYTES;
   constexpr int KEYS = RowChunk<T, DH>::KEYS;
   // a warp's share of the keys in one chunk, or in double-buffered chunks
+  // (with pos_dev, n_keys is the cache length: the largest share it can meet)
   const int per = (a.n_keys + ROW_WARPS - 1) / ROW_WARPS;
   const int chw = per < KEYS ? per : KEYS;
   const int nbuf = per > KEYS ? 2 : 1;
@@ -636,51 +664,68 @@ int launch_rows_dh(const DecodeArgs& a) {
   // static (the warps' partials) plus dynamic past 48 KB needs the opt-in
   constexpr size_t static_smem = sizeof(float) * ROW_WARPS * (DH + 2);
   if (smem + static_smem > 48 * 1024) {
-    const cudaError_t e = allow_dynamic_smem(decode_attn_kernel<T, DH, BEAM>, smem);
+    const cudaError_t e = allow_dynamic_smem(decode_attn_kernel<T, DH, BEAM, DEV_POS>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(a.n_head, a.batch);
-  decode_attn_kernel<T, DH, BEAM><<<grid, ROW_THREADS, smem, a.stream>>>(
+  decode_attn_kernel<T, DH, BEAM, DEV_POS><<<grid, ROW_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
       static_cast<float*>(a.out), a.n_head, a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs,
-      static_cast<const int*>(a.anc), a.anc_rs, a.g, chw, nbuf);
+      static_cast<const int*>(a.anc), a.anc_rs, a.g, chw, nbuf, a.pos_dev);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the self entry given a device position runs its own instantiation, so
+// the one given an int is the kernel it was
+template <typename T, int DH, bool BEAM>
+int launch_rows_pos(const DecodeArgs& a) {
+  if constexpr (!BEAM) {
+    if (a.pos_dev != nullptr) return launch_rows_dh<T, DH, false, true>(a);
+  }
+  return launch_rows_dh<T, DH, BEAM, false>(a);
 }
 
 template <typename T, bool BEAM>
 int launch_rows(const DecodeArgs& a) {
   switch (a.d_head) {
-    case 32: return launch_rows_dh<T, 32, BEAM>(a);
-    case 64: return launch_rows_dh<T, 64, BEAM>(a);
+    case 32: return launch_rows_pos<T, 32, BEAM>(a);
+    case 64: return launch_rows_pos<T, 64, BEAM>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool INDIRECT>
 int launch_cross_dh(const DecodeArgs& a) {
   const int per = (a.n_keys + CLUSTER - 1) / CLUSTER;
   const int ng = a.g < GMAX ? a.g : GMAX;
   // the K and V chunks, ng rows of scores, the K and V scales
   const size_t smem =
       static_cast<size_t>(per) * (2 * Slice<T, DH>::BYTES + (ng + 2) * sizeof(float));
-  const cudaError_t e = allow_dynamic_smem(cross_cluster_kernel<T, DH>, smem);
+  const cudaError_t e = allow_dynamic_smem(cross_cluster_kernel<T, DH, INDIRECT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   // grid x is the cluster: CLUSTER key chunks of one head
   const dim3 grid(CLUSTER, a.n_head, a.batch * ((a.g + GMAX - 1) / GMAX));
-  cross_cluster_kernel<T, DH><<<grid, DEC_THREADS, smem, a.stream>>>(
+  cross_cluster_kernel<T, DH, INDIRECT><<<grid, DEC_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<float*>(a.out), a.n_head,
-      a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs, a.g);
+      a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs, a.g, a.bases);
   return static_cast<int>(cudaGetLastError());
+}
+
+// likewise the cross entry given its buffers' addresses on the device
+template <typename T, int DH>
+int launch_cross_bases(const DecodeArgs& a) {
+  return a.bases != nullptr ? launch_cross_dh<T, DH, true>(a)
+                            : launch_cross_dh<T, DH, false>(a);
 }
 
 template <typename T>
 int launch_cross(const DecodeArgs& a) {
   switch (a.d_head) {
-    case 32: return launch_cross_dh<T, 32>(a);
-    case 64: return launch_cross_dh<T, 64>(a);
+    case 32: return launch_cross_bases<T, 32>(a);
+    case 64: return launch_cross_bases<T, 64>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -716,25 +761,32 @@ int dispatch(int dtype, const DecodeArgs& a) {
 // its scale is ks[b * sc_bs + j]. dtype DT_I4 (packed int4) is taken by the
 // two cross entries only.
 // ks / vs may be null (a float cache: scale 1). q and out are contiguous
-// (rows, n_head * d_head) f32.
+// (rows, n_head * d_head) f32. The self entry's pos_dev, when not null, is
+// an int64 position in device memory: the kernel attends its pos + 1 keys
+// (at most n_keys, which is then the cache length that sizes the launch).
 extern "C" int self_attn_decode(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs, void* out,
                                 int dtype, int batch, int n_head, int d_head,
                                 int n_keys, long long kv_bs, long long kv_rs,
-                                long long sc_bs, void* stream) {
+                                long long sc_bs, const void* pos_dev, void* stream) {
   return dispatch<Entry::kSelf>(dtype, {q, k, v, ks, vs, out, batch, n_head, d_head,
                                         n_keys, kv_bs, kv_rs, sc_bs, nullptr, 0, 1,
-                                        static_cast<cudaStream_t>(stream)});
+                                        static_cast<cudaStream_t>(stream),
+                                        static_cast<const long long*>(pos_dev)});
 }
 
+// The g = 1 cross entry's bases, when not null, is a device array of two
+// addresses, the K/V buffer's and the scales': k and v are then byte
+// offsets into the first, ks and vs into the second.
 extern "C" int cross_attn_decode(const void* q, const void* k, const void* v,
                                  const void* ks, const void* vs, void* out,
                                  int dtype, int batch, int n_head, int d_head,
                                  int n_keys, long long kv_bs, long long kv_rs,
-                                 long long sc_bs, void* stream) {
+                                 long long sc_bs, const void* bases, void* stream) {
   return dispatch<Entry::kCross>(dtype, {q, k, v, ks, vs, out, batch, n_head, d_head,
                                          n_keys, kv_bs, kv_rs, sc_bs, nullptr, 0, 1,
-                                         static_cast<cudaStream_t>(stream)});
+                                         static_cast<cudaStream_t>(stream), nullptr,
+                                         static_cast<const char* const*>(bases)});
 }
 
 // Beam rows: batch = rows (a multiple of g); key j of row r is read from

@@ -51,7 +51,8 @@ import torch
 from ... import profiling
 from ...ops.logit_epilogue import (fused_logit_aggregates, logit_aggregates,
                                    select_from_aggregates)
-from .model import (decoder_apply, decoder_prefill, decoder_step,
+from . import step_graph
+from .model import (cross_kv_bits, decoder_apply, decoder_prefill, decoder_step,
                     encoder_apply, fuse_self_qkv, precompute_cross_kv_t)
 
 _NEG = -1e9
@@ -570,15 +571,26 @@ def decode_launch(model, dims, tokenizer, mel_or_features: torch.Tensor,
         cache_len = min(dims.n_text_ctx, (sample_begin + sample_len + 128) // 128 * 128)
         tokens0 = torch.tensor([initial_tokens] * rows, dtype=torch.long,
                                device=device)
+        kv_quant = (dims.n_audio_state >= 1024 if options.kv_quant is None
+                    else options.kv_quant)
+        # the greedy step replays a CUDA graph where it can (step_graph.py):
+        # the prefill then fills the graph's self cache, which may be longer
+        runner = key = None
+        if (not use_beam and options.temperature == 0 and step_graph.graphable(
+                dec, device, return_hidden=True, q_per_kv=n_group)):
+            runner, key = step_graph.kept(
+                dec, rows, (xa.shape[1], cross_kv_bits(kv_quant), xa.dtype), cache_len)
         # every row of a window group prefills from the window's features; the
         # cross K/V are kept once per window
         xa_rows = xa.repeat_interleave(n_group, dim=0) if n_group > 1 else xa
-        prefill_logits, cache = decoder_prefill(dec, tokens0, xa_rows, cache_len)
-        kv_quant = (dims.n_audio_state >= 1024 if options.kv_quant is None
-                    else options.kv_quant)
-        step = partial(decoder_step, dec, cross_kv=precompute_cross_kv_t(
-            dec, xa, quantize=kv_quant), cache=cache, fused_qkv=fuse_self_qkv(dec),
-            q_per_kv=n_group)
+        prefill_logits, cache = decoder_prefill(
+            dec, tokens0, xa_rows, cache_len, out=runner.cache if runner else None)
+        cross_kv = precompute_cross_kv_t(dec, xa, quantize=kv_quant)
+        if key is not None and runner is None:
+            runner = dec._step_graph = step_graph.StepGraph(dec, key, cache)
+        step = partial(decoder_step, dec, cross_kv=cross_kv, cache=cache,
+                       fused_qkv=runner.fused_qkv if runner else fuse_self_qkv(dec),
+                       q_per_kv=n_group)
         # stays on the device: a download here would wait for the prefill
         no_speech = torch.softmax(prefill_logits[:, sot_index], dim=-1)[
             :, tokenizer.no_speech].float()
@@ -602,7 +614,7 @@ def decode_launch(model, dims, tokenizer, mel_or_features: torch.Tensor,
             return fused_logit_aggregates(x, emb, suppress_t, ts_mask, flags,
                                           ts_begin, eot, with_grammar)
 
-        outputs = _greedy_loop(step, filt, logits, epilogue,
+        outputs = _greedy_loop(partial(step, graph=runner), filt, logits, epilogue,
                                with_grammar=with_grammar, **loop)
     else:
         if generator is None:

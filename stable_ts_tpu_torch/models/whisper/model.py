@@ -13,8 +13,10 @@ their JAX counterparts so a reader finds each one's twin:
   decode, a float one) that the step updates IN PLACE (JAX threads it
   through the scan carry instead), with the decode-attention
   kernels (``ops/self_attn.py``, ``ops/cross_attn.py``); the step also
-  serves best_of groups and beams (``q_per_kv``, ``anc``) and can return
-  the hidden state for the logit epilogue (``ops/logit_epilogue.py``);
+  serves best_of groups and beams (``q_per_kv``, ``anc``), can return
+  the hidden state for the logit epilogue (``ops/logit_epilogue.py``),
+  and can take its position as a device tensor, which the greedy loop's
+  CUDA graph replays (``step_graph.py``);
 - :func:`precompute_cross_kv_t`: per-layer cross-attention K/V once per
   window, in the row-major layout the cross kernel reads (float, int8 or
   packed int4);
@@ -41,7 +43,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.cross_attn import cross_attn_decode, pack_int4
+from ... import profiling
+from ...ops.cross_attn import (cross_attn_decode, cross_attn_decode_indirect,
+                               pack_int4)
 from ...ops.flash_attn import flash_attention
 from ...ops.self_attn import self_attn_decode
 from ...ops.vocab_proj import MAX_ROWS, MIN_VOCAB, vocab_proj
@@ -179,6 +183,7 @@ class TextDecoder(_Stack):
             for _ in range(dims.n_text_layer))
         self.ln = LayerNorm(d, **factory)
         self._emb_f32 = None  # (token_emb version, f32 copy)
+        self._step_graph = None  # the greedy step's CUDA graph (step_graph.py)
 
     def vocab_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding projection x @ token_emb^T with f32 logits. A
@@ -235,9 +240,15 @@ def encoder_apply(encoder: AudioEncoder, mel: torch.Tensor) -> torch.Tensor:
 
 # -- decoder -------------------------------------------------------------------------------
 
-def _embed(decoder: TextDecoder, tokens: torch.Tensor, offset: int = 0):
+def _embed(decoder: TextDecoder, tokens: torch.Tensor, offset=0):
+    """Token plus position embeddings from position ``offset``: an int, or
+    a 0-d int64 tensor on the device for one token."""
     n_tok = tokens.shape[1]
-    x = decoder.token_emb[tokens] + decoder.pos_emb[offset:offset + n_tok]
+    if isinstance(offset, torch.Tensor):
+        pos = decoder.pos_emb.index_select(0, offset.reshape(1))
+    else:
+        pos = decoder.pos_emb[offset:offset + n_tok]
+    x = decoder.token_emb[tokens] + pos
     return x.to(decoder.token_emb.dtype)
 
 
@@ -301,21 +312,33 @@ def decoder_apply(decoder: TextDecoder, tokens: torch.Tensor, xa: torch.Tensor,
 
 
 def decoder_prefill(decoder: TextDecoder, tokens: torch.Tensor,
-                    xa: torch.Tensor, n_text_ctx: int, int8_cache: bool = True):
+                    xa: torch.Tensor, n_text_ctx: int, int8_cache: bool = True,
+                    out: Optional[dict] = None):
     """Teacher-forced pass over the initial tokens that also fills the row
     cache for positions [0, T). Returns (logits (B, T, V) f32, cache).
     ``int8_cache`` (the decode loops' layout): {'k', 'v': int8 (L, B,
     n_text_ctx, d); 'ks', 'vs': f32 (L, B, n_text_ctx)}, unwritten rows
     zero with scale 1 (model.py:839-850). Otherwise {'k', 'v'} in the
     activations' dtype, unwritten rows zero: the cache JAX's prefill keeps
-    by default, which ``locate`` decodes over (model.py:893-905)."""
+    by default, which ``locate`` decodes over (model.py:893-905). ``out``:
+    a cache of that layout, at least ``n_text_ctx`` long, to reset and fill
+    in place (a step graph's), in place of a new one."""
     b, n_tok = tokens.shape
     n_head = decoder.n_head
     n_layers = len(decoder.blocks)
     x = _embed(decoder, tokens)
     dev = x.device
     shape = (n_layers, b, n_text_ctx, n_head * decoder.d_head)
-    if int8_cache:
+    if out is not None:
+        got = out['k'].shape
+        if (got[:2] != shape[:2] or got[3] != shape[3] or got[2] < n_text_ctx
+                or ('ks' in out) != int8_cache
+                or out['k'].dtype != (torch.int8 if int8_cache else x.dtype)):
+            raise ValueError(f'decoder_prefill: out is not a cache of {shape}')
+        cache = out
+        for name, t in cache.items():
+            t.fill_(1.0 if name in ('ks', 'vs') else 0)
+    elif int8_cache:
         cache = {
             'k': torch.zeros(shape, dtype=torch.int8, device=dev),
             'v': torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -347,13 +370,17 @@ def _write_rows(cache: dict, layer: int, at, k: torch.Tensor, v: torch.Tensor,
     """Store K/V rows at cache positions ``at`` of ``layer``: quantized to
     int8 with their scales when the cache has them (K and V in one call,
     the amax of a row split over tp reduced over ``group`` in one
-    all-reduce), else as they are."""
+    all-reduce), else as they are. ``at``: an int or a slice, or a 0-d
+    int64 tensor on the device (one position, k and v (B, d))."""
+    rows = {'k': k, 'v': v}
     if 'ks' in cache:
         qt, sc = quantize_rows(torch.stack([k, v]), group=group)
-        cache['k'][layer, :, at], cache['v'][layer, :, at] = qt[0], qt[1]
-        cache['ks'][layer, :, at], cache['vs'][layer, :, at] = sc[0], sc[1]
-    else:
-        cache['k'][layer, :, at], cache['v'][layer, :, at] = k, v
+        rows = {'k': qt[0], 'v': qt[1], 'ks': sc[0], 'vs': sc[1]}
+    for name, row in rows.items():
+        if isinstance(at, torch.Tensor):
+            cache[name][layer].index_copy_(1, at.reshape(1), row.unsqueeze(1))
+        else:
+            cache[name][layer, :, at] = row
 
 
 def fuse_self_qkv(decoder: TextDecoder):
@@ -395,7 +422,7 @@ def precompute_cross_kv_t(decoder: TextDecoder, xa: torch.Tensor,
     b, s = xa.shape[:2]
     d = decoder.n_head * decoder.d_head
     n_layers = len(decoder.blocks)
-    bits = 0 if not quantize else (8 if quantize is True else int(quantize))
+    bits = cross_kv_bits(quantize)
     if bits and not 2 <= bits <= 8:
         raise ValueError(f'cross K/V quantization takes 2 to 8 bits, got {bits}')
     width = d // 2 if bits == 4 else d
@@ -414,10 +441,15 @@ def precompute_cross_kv_t(decoder: TextDecoder, xa: torch.Tensor,
     return {'kv': kv, 'sc': sc, 's': s, 'bits': bits}
 
 
+def cross_kv_bits(quantize) -> int:
+    """The stored width of :func:`precompute_cross_kv_t`'s ``quantize``."""
+    return 0 if not quantize else (8 if quantize is True else int(quantize))
+
+
 def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
                  cross_kv: dict, cache: dict, fused_qkv: List,
                  q_per_kv: int = 1, anc: Optional[torch.Tensor] = None,
-                 return_hidden: bool = False) -> torch.Tensor:
+                 return_hidden: bool = False, graph=None) -> torch.Tensor:
     """One decode step at position ``pos``. tokens (B, 1). Writes this
     position's K/V rows into ``cache`` in place (int8 when the cache holds
     scales, as :func:`decoder_prefill` made it), then attends keys
@@ -431,7 +463,31 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
     window). ``anc``: the beam layout's (B, C) int32 ancestry table — row
     r attends its window group's cache row ``anc[r, j]`` at position j;
     ``anc[:, pos]`` must be each row's own local index, since this step
-    writes each row's K/V in place."""
+    writes each row's K/V in place.
+
+    ``graph``: a :class:`~.step_graph.StepGraph` whose buffers are
+    ``cache`` and ``fused_qkv``, for a step that
+    :func:`~.step_graph.graphable` allows (the greedy loop passes one, and
+    the other arguments are then left out). The step is then a replay of
+    its capture, the same kernels on the same values, and the hidden state
+    it returns is the graph's output buffer, which the next step
+    overwrites. ``pos`` may also be a 0-d int64 tensor on the device, and
+    ``cross_kv`` may hold 'bases', the (2,) int64 addresses of the K/V and
+    scale buffers that the cross kernel reads (``kv`` and ``sc`` then give
+    their layout alone), as in the graph's capture."""
+    if graph is not None:
+        return graph(tokens, pos, cross_kv)
+    profiling.count('decode.eager_steps')
+    return _decoder_step(decoder, tokens, pos, cross_kv, cache, fused_qkv,
+                         q_per_kv, anc, return_hidden)
+
+
+def _decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos,
+                  cross_kv: dict, cache: dict, fused_qkv: List,
+                  q_per_kv: int = 1, anc: Optional[torch.Tensor] = None,
+                  return_hidden: bool = False) -> torch.Tensor:
+    """:func:`decoder_step`'s work, queued eagerly (a step graph captures
+    this function)."""
     n_head = decoder.n_head
     d = n_head * decoder.d_head        # this rank's heads' width
     q_scale = decoder.d_head ** -0.5
@@ -449,9 +505,14 @@ def decoder_step(decoder: TextDecoder, tokens: torch.Tensor, pos: int,
         x = x + blk.attn.out(ctx[:, None].to(x.dtype))
         ca = blk.cross_attn
         q = ca.q(blk.cross_attn_ln(x))[:, 0].float() * q_scale
-        ctx = cross_attn_decode(q, cross_kv['kv'], cross_kv['sc'], layer,
-                                cross_kv['s'], n_head, q_per_kv=q_per_kv,
-                                bits=cross_bits)
+        if 'bases' in cross_kv:
+            ctx = cross_attn_decode_indirect(q, cross_kv['kv'], cross_kv['sc'],
+                                             cross_kv['bases'], layer,
+                                             cross_kv['s'], n_head, bits=cross_bits)
+        else:
+            ctx = cross_attn_decode(q, cross_kv['kv'], cross_kv['sc'], layer,
+                                    cross_kv['s'], n_head, q_per_kv=q_per_kv,
+                                    bits=cross_bits)
         x = x + ca.out(ctx[:, None].to(x.dtype))
         x = x + blk.mlp(blk.mlp_ln(x))
     x = decoder.ln(x)[:, 0]

@@ -78,17 +78,7 @@ def cross_attn_decode(q, kv, sc, layer: int, s: int, n_head: int,
     any other value, that it holds one value per element. A CPU tensor
     goes to the plain twin, a CUDA tensor to the kernel (the group entry
     when q_per_kv > 1)."""
-    packed = bits == 4
-    # the caller states the packing; hold it against the shapes
-    # (cross_attn.py:247-255) instead of guessing it from them
-    if packed:
-        if kv.dtype != torch.int8 or kv.shape[-1] * 2 != q.shape[-1]:
-            raise ValueError(f'bits=4 expects packed int8 K/V rows of '
-                             f'{q.shape[-1] // 2} bytes, got {kv.dtype} rows '
-                             f'of {kv.shape[-1]}')
-    elif kv.shape[-1] != q.shape[-1]:
-        raise ValueError(f'K/V width {kv.shape[-1]} != query width '
-                         f'{q.shape[-1]} (pass bits=4 for packed int4)')
+    packed = _packed(q, kv, bits)
     k, v = kv[layer, :, 0], kv[layer, :, 1]
     ks, vs = sc[layer, :, 0], sc[layer, :, 1]
     if q.device.type == 'cpu':
@@ -102,3 +92,37 @@ def cross_attn_decode(q, kv, sc, layer: int, s: int, n_head: int,
                             n_head, g=q_per_kv, packed=packed)
     return _decode_cuda('cross_attn_decode', q, k, v, ks, vs, s, n_head,
                         packed=packed)
+
+
+def cross_attn_decode_indirect(q, kv, sc, bases, layer: int, s: int,
+                               n_head: int, bits: int = 8) -> torch.Tensor:
+    """:func:`cross_attn_decode` of one query row a window on the card,
+    whose kernel reads the buffers' addresses on the device: ``bases`` is a
+    (2,) int64 tensor holding the addresses of a K/V buffer and a scale
+    buffer laid out as ``kv`` and ``sc``, which give only the layout. A
+    captured CUDA graph so reads each group's new cross K/V. A wrapper of
+    its own rather than an argument of :func:`cross_attn_decode`, whose
+    arguments perfbench's roofline rules (``perfbench/roofline.py``) take
+    as they are."""
+    packed = _packed(q, kv, bits)
+    if q.device.type != 'cuda' or bases.dtype != torch.int64 or bases.shape != (2,):
+        raise ValueError('cross_attn_decode_indirect: a CUDA query and two '
+                         'int64 addresses')
+    return _decode_cuda('cross_attn_decode', q, kv[layer, :, 0], kv[layer, :, 1],
+                        sc[layer, :, 0], sc[layer, :, 1], s, n_head, packed=packed,
+                        bases=(bases, kv.data_ptr(), sc.data_ptr()))
+
+
+def _packed(q, kv, bits: int) -> bool:
+    """Whether kv is packed int4; the caller states the packing, held
+    against the shapes (cross_attn.py:247-255) instead of guessed from
+    them."""
+    if bits == 4:
+        if kv.dtype != torch.int8 or kv.shape[-1] * 2 != q.shape[-1]:
+            raise ValueError(f'bits=4 expects packed int8 K/V rows of '
+                             f'{q.shape[-1] // 2} bytes, got {kv.dtype} rows '
+                             f'of {kv.shape[-1]}')
+    elif kv.shape[-1] != q.shape[-1]:
+        raise ValueError(f'K/V width {kv.shape[-1]} != query width '
+                         f'{q.shape[-1]} (pass bits=4 for packed int4)')
+    return bits == 4

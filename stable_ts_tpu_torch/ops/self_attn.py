@@ -41,15 +41,15 @@ def _by_ancestor(t, anc, g: int, n: int):
     return grp.gather(1, idx).reshape(b, n, *t.shape[2:])
 
 
-def self_attn_decode_ref(q, k, v, k_scale, v_scale, pos: int, n_head: int,
+def self_attn_decode_ref(q, k, v, k_scale, v_scale, pos, n_head: int,
                          anc=None, q_per_kv: int = 1) -> torch.Tensor:
     """Plain twin. q: (B, d) f32, already scaled by d_head**-0.5; k/v:
-    one layer's (B, C, d) cache; k_scale/v_scale: (B, C) or None; anc:
-    (B, C) int32 ancestry with q_per_kv beams per window, or None.
-    Returns (B, d) f32."""
+    one layer's (B, C, d) cache; k_scale/v_scale: (B, C) or None; pos: an
+    int or a 0-d integer tensor; anc: (B, C) int32 ancestry with q_per_kv
+    beams per window, or None. Returns (B, d) f32."""
     b, d = q.shape
     dh = d // n_head
-    n = pos + 1
+    n = int(pos) + 1
     if anc is not None:
         k, v = (_by_ancestor(t, anc, q_per_kv, n) for t in (k, v))
         if k_scale is not None:
@@ -69,33 +69,53 @@ def self_attn_decode_ref(q, k, v, k_scale, v_scale, pos: int, n_head: int,
     return out.reshape(b, d)
 
 
-def self_attn_decode(q, k, v, k_scale, v_scale, pos: int, n_head: int,
+def self_attn_decode(q, k, v, k_scale, v_scale, pos, n_head: int,
                      anc=None, q_per_kv: int = 1) -> torch.Tensor:
     """One decode step of self-attention against one layer's cache; the
     current token's row must already be written at ``pos`` (and, with
     ``anc``, ``anc[:, pos]`` must be each row's own local index). A CPU
     tensor goes to the plain twin, a CUDA tensor to the kernel (the beam
-    entry when ``anc`` is given)."""
+    entry when ``anc`` is given).
+
+    ``pos`` is an int, or, for the self entry, a 0-d int64 tensor on the
+    query's device that the kernel reads there, so a captured CUDA graph
+    replays at every position; the launch is then sized for the whole
+    cache, and the result is the one the int gives."""
     if q.device.type == 'cpu':
         return self_attn_decode_ref(q, k, v, k_scale, v_scale, pos, n_head,
                                     anc, q_per_kv)
     if q.device.type != 'cuda':
         raise ValueError(f'self_attn_decode: unsupported device {q.device}')
+    on_device = isinstance(pos, torch.Tensor)
     if anc is not None:
+        if on_device:
+            raise ValueError('self_attn_decode: the beam entry takes an int pos')
         return _decode_cuda('self_attn_decode_beam', q, k, v, k_scale, v_scale,
                             pos + 1, n_head, g=q_per_kv, anc=anc)
+    if on_device:
+        if pos.dtype != torch.int64 or pos.numel() != 1 or pos.device != q.device:
+            raise ValueError('self_attn_decode: a tensor pos must be one int64 '
+                             'on the query\'s device')
+        return _decode_cuda('self_attn_decode', q, k, v, k_scale, v_scale,
+                            k.shape[1], n_head, pos_dev=pos)
     return _decode_cuda('self_attn_decode', q, k, v, k_scale, v_scale,
                         pos + 1, n_head)
 
 
 def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
-                 anc=None, packed=False):
+                 anc=None, packed=False, pos_dev=None, bases=None):
     """Launch one of decode_attn.cu's entries. k/v: (B, S, d) views whose
     rows are contiguous (batch and row strides are passed through), or with
     ``packed`` (the cross entries only) (B, S, d / 2) int8 bytes of packed
     int4, counted as ``<entry>_int4``; scales: (B, S) views with unit stride
     along S, or None. The group entry takes B * g query rows; the beam
-    entry takes ``anc`` (B, >= n_keys) int32 with unit stride along keys."""
+    entry takes ``anc`` (B, >= n_keys) int32 with unit stride along keys;
+    the self entry takes ``pos_dev``, a device int64 position whose keys
+    (at most ``n_keys``) it attends, or None; the g = 1 cross entry takes
+    ``bases``, (a (2,) int64 device tensor, the address of the buffer k
+    and v lie in, the address of the scales' buffer), or None: the kernel
+    then reads k, v and the scales at the same offsets in the two buffers
+    whose addresses the tensor holds when the kernel runs."""
     rows, d = q.shape
     dh = d // n_head
     group = entry == 'cross_attn_decode_group'
@@ -141,12 +161,21 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
         extra = (anc.data_ptr(), anc.stride(0), g)
     elif group:
         extra = (g,)
+    elif entry == 'self_attn_decode':
+        extra = (pos_dev.data_ptr() if pos_dev is not None else None,)
+    elif entry == 'cross_attn_decode':
+        extra = (bases[0].data_ptr() if bases is not None else None,)
+    ptrs = [k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None]
+    if bases is not None:     # offsets into the buffers the kernel finds
+        _, kv_base, sc_base = bases
+        ptrs = [ptrs[0] - kv_base, ptrs[1] - kv_base, ptrs[2] - sc_base,
+                ptrs[3] - sc_base]
     out = torch.empty((rows, d), dtype=torch.float32, device=q.device)
     fn = getattr(_build.lib(), entry)
     _build.check(fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if k_scale is not None else None,
-        v_scale.data_ptr() if v_scale is not None else None,
+        q.data_ptr(), *ptrs,
         out.data_ptr(), _build.DTYPE_I4 if packed else _build.dtype_code(k.dtype),
         b, n_head, dh, n_keys, k.stride(0), k.stride(1), sc_bs, *extra,
         _build.stream_ptr(q)), entry)

@@ -57,7 +57,11 @@ Counters: ``batched.windows_real`` and ``batched.windows_padded`` (the
 windows of the groups launched), ``decode.tokens_kept`` (the tokens of
 the real windows' results, from each group's first decode),
 ``decode.steps`` and ``decode.row_steps`` (the greedy loops' iterations,
-and those times their rows), ``encoder.windows`` (real windows encoded)
+and those times their rows), ``decode.graph_captures`` and
+``decode.graph_replays`` (the greedy step's CUDA graphs captured, and
+replayed, one replay a step: ``models/whisper/step_graph.py``),
+``decode.eager_steps`` (decoder steps of any loop queued eagerly, kernel
+by kernel), ``encoder.windows`` (real windows encoded)
 and, on the card, ``encoder.device_ms``: the encoder's device time
 between two CUDA timing events, read once a later host read
 (``decode_collect``'s download) has waited for them.

@@ -2,6 +2,8 @@
 GPU with nvcc (the kernels build at first use) and skip without one; run
 them on the card with ``python -m pytest tests/test_torch_kernels_gpu.py``.
 chip_smoke.py runs the same comparisons at the large-v3 shapes."""
+import collections
+
 import pytest
 import torch
 
@@ -660,3 +662,190 @@ def test_cross_kernel_raises_beyond_its_key_limit(cuda):
     sc = torch.ones((1, 1, 2, MAX_KEYS_CROSS + 1), device='cuda')
     with pytest.raises(ValueError, match='at most'):
         cross_attn_decode(_randn(cuda, 1, d), kv, sc, 0, MAX_KEYS_CROSS + 1, n_head)
+
+
+# -- the greedy step's CUDA graph (models/whisper/step_graph.py) ---------------------
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('pos', [0, 1, 200, 255])
+def test_self_decode_kernel_reads_its_position_on_the_device(cuda, dtype, pos):
+    """The self entry given its position as a device int64 (sized for the
+    whole cache, each warp's share taken in the kernel) equals the entry
+    given the int, bit for bit: the same shares, chunks and merge."""
+    from stable_ts_tpu_torch.ops.self_attn import self_attn_decode
+    rows, ctx, d, n_head = 32, 256, 1280, 20
+    k, v, ks, vs = _row_cache(cuda, dtype, rows, ctx, d)
+    q = _randn(cuda, rows, d) * 0.125
+    before = _build.launches['self_attn_decode']
+    want = self_attn_decode(q, k, v, ks, vs, pos, n_head)
+    got = self_attn_decode(q, k, v, ks, vs, torch.tensor(pos, device='cuda'), n_head)
+    torch.cuda.synchronize()
+    assert _build.launches['self_attn_decode'] == before + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('kind', ['int8', 'int4', 'bf16'])
+@pytest.mark.parametrize('layer', [0, 2])
+def test_cross_decode_kernel_reads_its_buffers_on_the_device(cuda, kind, layer):
+    """The g = 1 cross entry given its K/V and scale buffers' addresses on
+    the device reads those buffers at the layout's offsets (layer 0: offset
+    0) and equals the entry given the buffers themselves, bit for bit."""
+    from stable_ts_tpu_torch.models.whisper.model import quantize_rows
+    from stable_ts_tpu_torch.ops.cross_attn import (cross_attn_decode,
+                                                    cross_attn_decode_indirect,
+                                                    pack_int4)
+    layers, b, s, d, n_head = 3, 32, 1500, 1280, 20
+
+    def buffers():
+        kv = _randn(cuda, layers, b, 2, s, d)
+        if kind == 'bf16':
+            return kv.to(torch.bfloat16), torch.ones((layers, b, 2, s), device='cuda')
+        vals, sc = quantize_rows(kv, bits=4 if kind == 'int4' else 8)
+        return (pack_int4(vals) if kind == 'int4' else vals), sc
+    bits = 4 if kind == 'int4' else 8
+    layout_kv, layout_sc = buffers()
+    kv, sc = buffers()
+    q = _randn(cuda, b, d) * 0.125
+    bases = torch.tensor([kv.data_ptr(), sc.data_ptr()], device='cuda')
+    before = _build.launches['cross_attn_decode' + ('_int4' if bits == 4 else '')]
+    got = cross_attn_decode_indirect(q, layout_kv, layout_sc, bases, layer, s,
+                                     n_head, bits=bits)
+    want = cross_attn_decode(q, kv, sc, layer, s, n_head, bits=bits)
+    torch.cuda.synchronize()
+    assert _build.launches['cross_attn_decode' + ('_int4' if bits == 4 else '')] == before + 2
+    assert torch.equal(got, want)
+
+
+def _rank_table(n=50257):
+    """A synthetic byte-level rank table the size of the multilingual
+    vocabulary's (chip_smoke.py's)."""
+    ranks = {bytes([b]): b for b in range(256)}
+    i = 256
+    while len(ranks) < n:
+        ranks[b'\x00' + i.to_bytes(3, 'big')] = i
+        i += 1
+    return ranks
+
+
+@pytest.fixture(scope='module')
+def wide_model():
+    """A random bf16 model of large-v3's width (d 1280, 20 heads, its
+    vocabulary) with 4 decoder layers: the greedy step's kernels at the
+    shapes of a real decode."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU: CUDA graphs have no CPU mode')
+    import dataclasses
+    from stable_ts_tpu_torch.loaders import WhisperTorch
+    from stable_ts_tpu_torch.models.whisper.dims import (OPENAI_MODEL_DIMS,
+                                                         ModelDimensions)
+    from stable_ts_tpu_torch.models.whisper.model import init_params
+    dims = dataclasses.replace(ModelDimensions(**OPENAI_MODEL_DIMS['large-v3']),
+                               n_audio_layer=1, n_text_layer=4)
+    return WhisperTorch(dims, init_params(dims, seed=0, dtype=torch.bfloat16,
+                                          device='cuda'),
+                        device='cuda', name='large-v3-4', ranks=_rank_table())
+
+
+def _greedy(model, feats, sample_len, monkeypatch, eager=False):
+    """One greedy group: each step's (token, log-probability) as the loop
+    selects them, the summed log-probabilities, the recorder's counters."""
+    from stable_ts_tpu_torch import profiling
+    from stable_ts_tpu_torch.models.whisper import decoding, step_graph
+    steps, select = [], decoding.select_from_aggregates
+
+    def recording_select(agg, with_grammar=True):
+        tok, lp = select(agg, with_grammar)
+        steps.append((tok, lp))
+        return tok, lp
+    with monkeypatch.context() as m:
+        m.setattr(decoding, 'select_from_aggregates', recording_select)
+        if eager:
+            m.setattr(step_graph, 'graphable', lambda *a, **k: False)
+        with profiling.recording() as rec:
+            pending = model.decode_launch(feats, decoding.DecodingOptions(
+                language='en', temperature=0.0, sample_len=sample_len))
+    torch.cuda.synchronize()
+    return (torch.stack([t for t, _ in steps]), torch.stack([lp for _, lp in steps]),
+            pending.outputs[1], collections.Counter(rec.counters))
+
+
+@pytest.mark.parametrize('sample_len,cache_len', [(100, 128), (140, 256)])
+def test_greedy_step_graph_equals_eager(cuda, wide_model, monkeypatch, sample_len,
+                                        cache_len):
+    """A 32-row greedy group whose steps replay a CUDA graph gives the eager
+    loop's tokens, step log-probabilities and sums, bit for bit."""
+    feats = _randn(cuda, 32, 1500, 1280, dtype=torch.bfloat16)
+    tok, lp, sums, counts = _greedy(wide_model, feats, sample_len, monkeypatch)
+    e_tok, e_lp, e_sums, e_counts = _greedy(wide_model, feats, sample_len,
+                                            monkeypatch, eager=True)
+    steps = len(tok) - 1      # decoder steps: the last token needs none
+    assert counts['decode.graph_replays'] + counts['decode.eager_steps'] == steps
+    assert counts['decode.graph_replays'] >= steps - 2
+    assert e_counts['decode.graph_replays'] == 0 and e_counts['decode.eager_steps'] == steps
+    runner = wide_model.params.decoder._step_graph
+    assert runner.cache['k'].shape[2] == cache_len
+    assert torch.equal(tok, e_tok)
+    assert torch.equal(lp, e_lp)
+    assert torch.equal(sums, e_sums)
+
+
+def test_step_graph_second_group_equals_eager(cuda, wide_model, monkeypatch):
+    """A second group with other features through the same captured runner,
+    its cross K/V at another address, equals its own eager run: the cache
+    is written anew and the graph reads the new cross K/V."""
+    _greedy(wide_model, _randn(cuda, 32, 1500, 1280, dtype=torch.bfloat16), 60,
+            monkeypatch)
+    runner = wide_model.params.decoder._step_graph
+    first = runner.bases.tolist()
+    # the first group's freed cross K/V held, so the second's lands elsewhere
+    held = torch.empty(4 * 32 * 2 * 1500 * 1280, dtype=torch.int8, device='cuda')
+    feats = _randn(cuda, 32, 1500, 1280, dtype=torch.bfloat16) * 2.0
+    tok, lp, sums, counts = _greedy(wide_model, feats, 60, monkeypatch)
+    assert runner.bases.tolist() != first
+    del held
+    e_tok, e_lp, e_sums, _ = _greedy(wide_model, feats, 60, monkeypatch, eager=True)
+    assert counts['decode.graph_captures'] == counts['decode.eager_steps'] == 0
+    assert counts['decode.graph_replays'] == len(tok) - 1
+    assert torch.equal(tok, e_tok) and torch.equal(lp, e_lp) and torch.equal(sums, e_sums)
+
+
+def test_step_graph_counts_the_eager_launches(cuda, wide_model, monkeypatch):
+    """``_build.launches`` after a graphed loop (one that captures, one that
+    only replays) equals the eager loop's."""
+    feats = _randn(cuda, 32, 1500, 1280, dtype=torch.bfloat16)
+    wide_model.params.decoder._step_graph = None        # a fresh capture
+    counts = []
+    for eager in (True, False, False):
+        _build.reset_launch_counts()
+        _greedy(wide_model, feats, 40, monkeypatch, eager=eager)
+        counts.append(_build.launch_counts())
+    assert counts[0]['self_attn_decode'] == counts[0]['cross_attn_decode'] == 4 * 39
+    assert counts[1] == counts[0] and counts[2] == counts[0]
+
+
+@pytest.mark.parametrize('options', [dict(temperature=0.5), dict(temperature=0.5, best_of=2),
+                                     dict(temperature=0.0, beam_size=2)],
+                         ids=['sampled', 'best_of', 'beam'])
+def test_sampled_and_beam_decodes_replay_no_graph(cuda, wide_model, options):
+    from stable_ts_tpu_torch import profiling
+    from stable_ts_tpu_torch.models.whisper import decoding
+    feats = _randn(cuda, 4, 1500, 1280, dtype=torch.bfloat16)
+    with profiling.recording() as rec:
+        wide_model.decode_launch(feats, decoding.DecodingOptions(
+            language='en', sample_len=8, **options))
+    assert rec.counters['decode.eager_steps'] > 0
+    assert rec.counters.get('decode.graph_replays', 0) == 0
+    assert rec.counters.get('decode.graph_captures', 0) == 0
+
+
+def test_locate_replays_no_graph(cuda, wide_model):
+    """``locate``'s confirmation decode steps stay eager."""
+    import numpy as np
+    from stable_ts_tpu_torch import profiling
+    audio = (np.random.default_rng(3).standard_normal(16000 * 20) * 0.1).astype(np.float32)
+    with profiling.recording() as rec:
+        wide_model.locate(audio, [300, 301], language='en', mode=1,
+                          probability_threshold=0.0, verbose=None)
+    assert rec.counters['decode.eager_steps'] > 0
+    assert rec.counters.get('decode.graph_replays', 0) == 0
+    assert rec.counters.get('decode.graph_captures', 0) == 0

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device times of stable_ts_tpu_torch's decode-attention entries (self,
-beam, cross), vocab projection, weight-only matmul, greedy logit epilogue
-(beside torch.mm of the same product, its yardstick) and DTW cost at
-Whisper large-v3's shapes, and of an empty launch where the tree has one,
-for the package found under ROOT (default: this checkout).
+its position given on the host and, where the tree can read it there, on
+the device; beam; cross), vocab projection, weight-only matmul, greedy
+logit epilogue (beside torch.mm of the same product, its yardstick) and
+DTW cost at Whisper large-v3's shapes, and of an empty launch where the
+tree has one, for the package found under ROOT (default: this checkout).
 
     python3 tools/torch_kernel_times.py [ROOT ...]
 
@@ -70,6 +71,12 @@ def time_root(root: str) -> dict:
         args = (q, kc[5], vc[5], ks[5], vs[5], pos, h)
         if g == 1:
             times['self int8 pos 200'] = both(lambda: self_attn.self_attn_decode(*args), 200)
+            if len(_build._SIGNATURES['self_attn_decode']) > 15:
+                # the position read on the device, as the greedy step's graph does
+                pos_dev = torch.tensor(pos, device='cuda')
+                dev_args = args[:5] + (pos_dev, h)
+                times['self int8 pos 200, device pos'] = both(
+                    lambda: self_attn.self_attn_decode(*dev_args), 200)
         else:
             anc = torch.randint(0, g, (rows, ctx), generator=gen, device='cuda',
                                 dtype=torch.int32)
