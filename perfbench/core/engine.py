@@ -139,22 +139,27 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         f'converted {t_converted - t_drawn:.3f}), '
         f'warm-up {t_ready - t_weights:.3f}')
 
-    tracer = None
+    tracer = recorder = recording = None
     if trace:
-        tracer = Tracer(cell.traffic.get('profile_seconds', 2.0))
+        tracer = Tracer(cell.traffic.get('profile_seconds', 2.0),
+                        counters=lambda: recording.counters if recording else {})
         tracer.ops_on()
         wl.trace_hooks(tracer, model)
         wl.span = tracer.span
     wl.install(model)
     batched.HOST_PHASES.clear()
+    if trace:       # the program's own spans and counters
+        from stable_ts_tpu_torch import profiling
+        recorder = profiling.recording()
+        recording = recorder.__enter__()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     before = host_counters()
-    if tracer:
-        tracer.start_profile()
     served_s, attempted, failed, i = 0.0, 0, 0, 0
     while served_s < seconds:
         req = wl.make_request(i)
+        if tracer and i == 1:     # the first request may capture a graph
+            tracer.start_profile()
         i += 1
         attempted += 1
         t0 = time.perf_counter()
@@ -176,12 +181,15 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     if tracer:
         tracer.stop_profile()
     _sync(torch, device)
+    if recorder:
+        recorder.__exit__(None, None, None)   # reads the device times, now all done
     after = host_counters()
     memory_peak = torch.cuda.max_memory_allocated() if on_card else 0
     host_phases = dict(batched.HOST_PHASES)
     wl.uninstall(model)
     if tracer:
         tracer.uninstall()
+        tracer.read(recording.spans)
     log(f'[window] {served_s:.3f} s, {attempted} requests, {failed} failed, '
         f'{sum(r["audio_s"] for r in wl.served):.1f} audio s; host phases '
         + ', '.join(f'{k} {v:.3f}' for k, v in sorted(host_phases.items())))
@@ -200,6 +208,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         spans={k: tuple(v) for k, v in (tracer.spans if tracer else {}).items()},
         counters=dict(tracer.counters) if tracer else {},
         profile=tracer.profile if tracer else None, host_phases=host_phases,
+        recording=recording,
         useful_flops=wl.useful_flops(), real_windows=wl.real_windows())
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
@@ -242,10 +251,15 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         out['device'].update(busy_s=p['busy_s'], window_s=p['window_s'])
         out['breakdown'] = dict(device_ops=[[n, s] for n, s in p['device_ops']],
                                 idle_gaps=[[n, s] for n, s in p['idle_gaps']])
-        log(f'[profile] {p["n_events"]} events; per wrapper (bound s, device s, '
-            f'calls): {p["per_op"]}')
+        log(f'[profile] {p["n_events"]} events; decode.graph_captures at the '
+            f'start {tracer.graph_captures[0]}, at the stop {tracer.graph_captures[1]}; '
+            f'{p["graph_launches"]} graph launches, {p["graph_replays_matched"]} '
+            f'matched to a replayed step; unmatched kernels {p["unmatched"]}, '
+            f'captured calls without a kernel {p["graph_calls_unmatched"]}; '
+            f'per wrapper (bound s, device s, calls): {p["per_op"]}')
     if tracer:
-        log(f'[trace] spans {ctx.spans}; counters {ctx.counters}')
+        log(f'[trace] spans {ctx.spans}; counters {ctx.counters}; program '
+            f'counters {recording.counters}')
     if control is not None:
         out['readings'], out['control'] = numbers, control
         out['control_compared'], out['control_correct'] = hold(control, cell.limits)

@@ -77,7 +77,7 @@ class Workload(Base):
     def trace_hooks(self, tracer, model):
         from stable_ts_tpu_torch.models.whisper import decoding
         tracer.span_on(decoding, '_greedy_loop', 'greedy_loop')
-        tracer.count_on(decoding, 'decoder_step', 'decoder_step')
+        tracer.step_on(decoding, 'decoder_step', 'decoder_step')
         tracer.span_on(model, 'embed_audio', 'embed_audio')
 
     def serve(self, model, req):
