@@ -7,6 +7,12 @@ from typing import Callable
 HERE = Path(__file__).resolve().parents[1]          # perfbench/
 
 
+def find(folder: str, name: str, suffix: str = '.py') -> Path:
+    """The file of ``name`` in the benchmark's ``folder`` (``families``,
+    ``generators``, ``traffic``, ``limits``, ``metrics``)."""
+    return HERE / folder / f'{name}{suffix}'
+
+
 def _load_module(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None or not path.exists():
@@ -22,8 +28,10 @@ def load_json(path: Path) -> dict:
 
 
 class Cell:
-    """A workload of BENCHMARK.json with its configuration, traffic mix,
-    traffic kind, metric readers and limits."""
+    """A workload of BENCHMARK.json with its configuration, model family,
+    traffic mix, traffic kind, metric readers and limits. A configuration
+    that names no family, or one with no module, raises here, before any
+    device work."""
 
     def __init__(self, bench: dict, workload: str, root: Path):
         cells = {w['name']: w for w in bench['workloads']}
@@ -33,10 +41,17 @@ class Cell:
         self.name = workload
         configs = {c['name']: c for c in bench['configs']}
         self.config = load_json(root / configs[self.entry['config']]['file'])
-        self.traffic = load_json(HERE / 'traffic' / f"{self.entry['traffic']}.json")
-        self.kind = _load_module(HERE / 'generators' / f"{self.traffic['kind']}.py",
+        family = self.config.get('family')
+        if family is None:
+            raise KeyError(f"configuration {self.entry['config']!r} names no "
+                           f"family (perfbench/families/<family>.py)")
+        self.family = _load_module(find('families', family),
+                                   f'perfbench_family_{family}')
+        self.family.check_config(self.config)
+        self.traffic = load_json(find('traffic', self.entry['traffic'], '.json'))
+        self.kind = _load_module(find('generators', self.traffic['kind']),
                                  f"perfbench_kind_{self.traffic['kind']}")
-        self.limits = load_json(HERE / 'limits' / f'{workload}.json')
+        self.limits = load_json(find('limits', workload, '.json'))
 
         def applies(m):
             return 'workloads' not in m or workload in m['workloads']
@@ -45,6 +60,6 @@ class Cell:
 
     @staticmethod
     def reader(metric: str) -> Callable:
-        mod = _load_module(HERE / 'metrics' / f'{metric}.py',
+        mod = _load_module(find('metrics', metric),
                            'perfbench_metric_' + metric.replace('.', '_'))
         return mod.read

@@ -9,6 +9,9 @@ After the window the program's state is freed and the reference, built
 anew from the seed, judges a sample of what the program served (the
 kind's ``sample`` and ``check``). Each compared number is held against
 its limit in ``perfbench/limits/<cell>.json``.
+
+The model, its reference and the program's host phases come from the
+configuration's family (``perfbench/families/<family>.py``).
 """
 import gc
 import math
@@ -19,9 +22,7 @@ from contextlib import nullcontext
 from pathlib import Path
 from types import SimpleNamespace
 
-from . import weights
 from .cell import Cell, load_json
-from .ranks import rank_table
 from .trace import Tracer
 
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'stable_ts_tpu')
@@ -33,17 +34,6 @@ def forbidden_modules(modules=None):
     ``stable_ts_tpu``)."""
     names = sys.modules if modules is None else modules
     return sorted({m.split('.')[0] for m in names} & set(FORBIDDEN))
-
-
-def alignment_heads(blob: str, dims: dict):
-    """(layer, head) pairs of a public base85 gzip head mask."""
-    import base64
-    import gzip
-
-    import numpy as np
-    mask = np.frombuffer(gzip.decompress(base64.b85decode(blob)), dtype=bool)
-    mask = mask.reshape(dims['n_text_layer'], dims['n_text_head'])
-    return [(int(l), int(h)) for l, h in np.argwhere(mask)]
 
 
 def host_counters():
@@ -85,9 +75,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     """Run the cell; returns the result line's object (without printing).
     ``configure(cell)`` may change the loaded cell before anything runs
     (the CPU tests shrink it). ``with_control`` also judges the control,
-    the reference in fp8 weights and int4 keys and values put in the
-    program's place on the same inputs, under the key ``control`` (the
-    benchmark's own runs never do)."""
+    the family's reference in the precision below the configuration's put
+    in the program's place on the same inputs, under the key ``control``
+    (the benchmark's own runs never do)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -96,14 +86,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     cell = Cell(bench, workload, root)
     if configure is not None:
         configure(cell)
-    cfg = cell.config
-    dims = cfg['dims']
+    cfg, family = cell.config, cell.family
     on_card = device.startswith('cuda')
 
-    from stable_ts_tpu_torch import _build, batched
-    from stable_ts_tpu_torch.loaders import WhisperTorch
-    from stable_ts_tpu_torch.models.whisper.dims import ModelDimensions
-    from stable_ts_tpu_torch.models.whisper.load import convert_openai_state_dict
+    from stable_ts_tpu_torch import _build
     if on_card:
         torch.zeros(1, device=device)
         _sync(torch, device)
@@ -114,29 +100,21 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     t_build = time.perf_counter()
 
     dtype = getattr(torch, cfg['dtype'])
-    heads = alignment_heads(cfg['alignment_heads'], dims)
-    sd = weights.state_dict(dims, seed, dtype, device)
-    _sync(torch, device)
-    t_drawn = time.perf_counter()
-    params = convert_openai_state_dict(sd, ModelDimensions(**dims), dtype=dtype,
-                                       device=device)
-    del sd
-    _sync(torch, device)
-    t_converted = time.perf_counter()
-    model = WhisperTorch(ModelDimensions(**dims), params, device=device,
-                         name=cfg['name'], ranks=rank_table(),
-                         alignment_heads=heads)
+    model, marks = family.build(cfg, seed, dtype, device)
     _sync(torch, device)
     t_weights = time.perf_counter()
-    wl = cell.kind.Workload(cell.traffic, dims, seed, device)
+    wl = cell.kind.Workload(cell.traffic, cfg['dims'], seed, device)
     wl.warmup(model)
     _sync(torch, device)
     t_ready = time.perf_counter()
     setup_s = t_ready - t_start
+    parts, at = [], t_build
+    for name, t in marks:
+        parts.append(f'{name} {t - at:.3f}')
+        at = t
     log(f'[setup] {setup_s:.3f} s: imports and CUDA context '
         f'{t_context - t_start:.3f}, build check {t_build - t_context:.3f}, '
-        f'weights {t_weights - t_build:.3f} (drawn {t_drawn - t_build:.3f}, '
-        f'converted {t_converted - t_drawn:.3f}), '
+        f'weights {t_weights - t_build:.3f} ({", ".join(parts)}), '
         f'warm-up {t_ready - t_weights:.3f}')
 
     tracer = recorder = recording = None
@@ -147,7 +125,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         wl.trace_hooks(tracer, model)
         wl.span = tracer.span
     wl.install(model)
-    batched.HOST_PHASES.clear()
+    phases = family.host_phases()
+    phases.clear()
     if trace:       # the program's own spans and counters
         from stable_ts_tpu_torch import profiling
         recorder = profiling.recording()
@@ -185,7 +164,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         recorder.__exit__(None, None, None)   # reads the device times, now all done
     after = host_counters()
     memory_peak = torch.cuda.max_memory_allocated() if on_card else 0
-    host_phases = dict(batched.HOST_PHASES)
+    host_phases = dict(phases)
     wl.uninstall(model)
     if tracer:
         tracer.uninstall()
@@ -219,21 +198,18 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     # the program's state goes before the reference comes
     items = wl.sample()
-    del model, params
+    del model
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    from perfbench.reference.judge import Judge
-    judge = Judge(weights.state_dict(dims, seed, dtype, device), dims,
-                  rank_table(), device)
+    judge = family.judge(cfg, seed, dtype, device)
     numbers = wl.check(judge, items)
     log(f'[check] {len(items)} items in {time.perf_counter() - t_check:.3f} s: '
         f'{numbers}')
     control = None
     if with_control:
-        low = Judge(weights.state_dict(dims, seed, dtype, device), dims,
-                    rank_table(), device, weight_format='fp8', kv_bits=4)
+        low = family.judge(cfg, seed, dtype, device, control=True)
         control = wl.check(judge, wl.control(low, items))
         del low
         log(f'[control] {control}')

@@ -85,28 +85,18 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from perfbench import roofline
-    from perfbench.core import audio, weights
+    from perfbench.core import audio
     from perfbench.core.cell import Cell, load_json
-    from perfbench.core.engine import alignment_heads
-    from perfbench.core.ranks import rank_table
     from perfbench.core.trace import Tracer
     from stable_ts_tpu_torch import _build, profiling
-    from stable_ts_tpu_torch.loaders import WhisperTorch
     from stable_ts_tpu_torch.models.whisper import decoding, step_graph
-    from stable_ts_tpu_torch.models.whisper.dims import ModelDimensions
-    from stable_ts_tpu_torch.models.whisper.load import convert_openai_state_dict
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cell = Cell(load_json(ROOT / 'BENCHMARK.json'), args.workload, ROOT)
-    cfg, dims = cell.config, cell.config['dims']
-    dtype = getattr(torch, cfg['dtype'])
+    cfg = cell.config
     _build.build()
-    params = convert_openai_state_dict(weights.state_dict(dims, args.seed, dtype, 'cuda'),
-                                       ModelDimensions(**dims), dtype=dtype, device='cuda')
-    model = WhisperTorch(ModelDimensions(**dims), params, device='cuda',
-                         name=cfg['name'], ranks=rank_table(),
-                         alignment_heads=alignment_heads(cfg['alignment_heads'], dims))
-    wl = cell.kind.Workload(cell.traffic, dims, args.seed, 'cuda')
+    model, _ = cell.family.build(cfg, args.seed, getattr(torch, cfg['dtype']), 'cuda')
+    wl = cell.kind.Workload(cell.traffic, cfg['dims'], args.seed, 'cuda')
     batch = cell.traffic['batch_size']
     pcm = audio.speech_like(30.0 * batch, (args.seed, 'steps'), 'cuda').pcm
     options = wl._options(args.sample_len)

@@ -5,6 +5,8 @@ from pathlib import Path
 
 import pytest
 
+from perfbench.core.cell import _load_module
+
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / 'BENCHMARK.json').read_text())
 NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$')
@@ -37,14 +39,16 @@ def test_config(entry):
     path = ROOT / entry['file']
     assert path.is_file() and entry['file'].startswith('perfbench/')
     cfg = json.loads(path.read_text())
-    assert cfg['reduced'] == entry['reduced'] == []
-    assert cfg['source'] == entry['source']
+    assert cfg['name'] == entry['name'] and cfg['source'] == entry['source']
+    assert cfg['reduced'] == entry['reduced']
+    assert set(cfg['reduced']) <= set(cfg) and len(cfg['reduced']) <= 16
+    assert all(NAME.match(k) for k in cfg['reduced'])
     assert (ROOT / cfg['reference']).is_file()
-    dims = cfg['dims']
-    assert dims['n_text_layer'] == cfg['decoder_layers']
-    assert dims['n_audio_layer'] == cfg['encoder_layers']
-    assert dims['n_audio_state'] == dims['n_text_state'] == cfg['d_model']
-    assert dims['n_vocab'] == cfg['vocab_size'] and dims['n_mels'] == cfg['num_mel_bins']
+    assert cfg['dtype'] in ('float32', 'bfloat16', 'float16')
+    assert isinstance(cfg['dims'], dict)
+    assert NAME.match(cfg['family'])
+    family = ROOT / 'perfbench' / 'families' / f"{cfg['family']}.py"
+    _load_module(family, f"family_{cfg['family']}").check_config(cfg)
 
 
 @pytest.mark.parametrize('cell', BENCH['workloads'], ids=lambda w: w['name'])

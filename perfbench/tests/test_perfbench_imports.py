@@ -2,6 +2,7 @@
 does not load the program either. Top-level module names are compared
 whole: ``stable_ts_tpu_torch`` is not ``stable_ts_tpu``."""
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -60,6 +61,35 @@ def test_harness_loads_no_jax():
         'import stable_ts_tpu_torch.transcribe, stable_ts_tpu_torch.alignment\n')
     assert not loaded & JAX_NAMES
     assert 'stable_ts_tpu_torch' in loaded
+
+
+def _family_configs() -> dict:
+    """One configuration file of each family the benchmark's configurations name."""
+    out = {}
+    for path in sorted((PERFBENCH / 'configs').glob('*.json')):
+        out.setdefault(json.loads(path.read_text())['family'], path)
+    return out
+
+
+@pytest.mark.parametrize('family,config', sorted(_family_configs().items()),
+                         ids=lambda x: getattr(x, 'stem', x))
+def test_family_loads_no_jax(family, config):
+    """A family's module, its tiny model built on the CPU, its reference
+    and its host phases load no JAX and no JAX package."""
+    loaded = _loaded(
+        'import sys; sys.path.insert(0, ".")\n'
+        'import json\n'
+        'from pathlib import Path\n'
+        'import torch\n'
+        'from perfbench.core.cell import _load_module\n'
+        f'cfg = json.loads(Path({str(config)!r}).read_text())\n'
+        f'family = _load_module(Path("perfbench/families/{family}.py"), "family")\n'
+        'family.tiny(cfg)\n'
+        'family.build(cfg, 1, torch.float32, "cpu")\n'
+        'family.judge(cfg, 1, torch.float32, "cpu")\n'
+        'family.judge(cfg, 1, torch.float32, "cpu", control=True)\n'
+        'family.host_phases()\n')
+    assert not loaded & JAX_NAMES
 
 
 def test_reference_loads_no_program():
