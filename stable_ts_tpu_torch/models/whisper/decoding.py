@@ -264,18 +264,54 @@ def _advance_grammar(next_tok, finished, max_ts, ts_begin: int):
                        torch.maximum(max_ts, next_tok - ts_begin), max_ts)
 
 
+class _StopFlag:
+    """Whether every row of the greedy loop is done, read one step late.
+    On the card, ``queue`` copies the 0-d flag into a pinned host slot
+    behind an event, and ``read`` waits for that event alone, not for the
+    work queued after it. The host reads the slot before it queues the
+    next copy into it, so one slot is enough. On the CPU the flag is read
+    as it stands."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == 'cuda'
+        if self.cuda:
+            self.flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+            self.event = torch.cuda.Event()
+
+    def queue(self, flag: torch.Tensor):
+        if self.cuda:
+            self.flag.copy_(flag, non_blocking=True)
+            self.event.record(torch.cuda.current_stream(flag.device))
+        else:
+            self.flag = flag
+
+    def read(self) -> bool:
+        if self.cuda:
+            if not self.event.query():
+                # the card still runs this step: the host queued the next one early
+                profiling.count('decode.overlapped_steps')
+            self.event.synchronize()
+        return bool(self.flag)
+
+
 def _greedy_loop(step, filt, logits, epilogue, *, sample_begin: int,
                  sample_len: int, eot: int, ts_begin: int,
                  with_grammar: bool):
     """Greedy decoding through the logit epilogue (decoding.py:196-279).
     ``epilogue(x, flags)`` -> (B, 6) aggregates of the step's hidden state.
-    Returns (sampled tokens (B, n), sum of logprobs (B,))."""
+    Returns (sampled tokens (B, n), sum of logprobs (B,)).
+
+    The host reads whether every row is done one step late: iteration i
+    queues step i + 1 before it waits for step i's flag, so the card runs
+    step i while the host queues step i + 1. A loop that ends on EOT before
+    ``sample_len`` so queues one step that nothing reads, and drops it."""
     rows = logits.shape[0]
     neg1 = torch.full((rows,), -1, dtype=torch.long, device=logits.device)
     agg = logit_aggregates(filt(logits, 0, neg1, neg1, neg1), ts_begin)
     last_tok, max_ts = neg1, neg1
     finished = torch.zeros(rows, dtype=torch.bool, device=logits.device)
     sum_logprobs = torch.zeros(rows, dtype=torch.float32, device=logits.device)
+    done = _StopFlag(logits.device)
     sampled = []
     for i in range(sample_len):
         # a step's span less its one host read is the host queuing its work
@@ -288,10 +324,7 @@ def _greedy_loop(step, filt, logits, epilogue, *, sample_begin: int,
             finished = finished | (next_tok == eot)
             if i + 1 == sample_len:
                 break
-            with profiling.span('decode.sync_wait'):
-                done = bool(finished.all())
-            if done:
-                break
+            done.queue(finished.all())
             # the grammar flags of step i + 1 (LogitFilter with last = next_tok)
             last_was_ts = next_tok >= ts_begin
             penult_was_ts = (last_tok >= ts_begin) | (i + 1 < 2)
@@ -303,6 +336,11 @@ def _greedy_loop(step, filt, logits, epilogue, *, sample_begin: int,
             hidden = step(next_tok[:, None], sample_begin + i, return_hidden=True)
             agg = epilogue(hidden, flags)
             last_tok = next_tok
+            with profiling.span('decode.sync_wait'):
+                stop = done.read()
+            if stop:
+                profiling.count('decode.steps_discarded')
+                break
     profiling.count('decode.steps', len(sampled))
     profiling.count('decode.row_steps', rows * len(sampled))
     return torch.stack(sampled, dim=1), sum_logprobs

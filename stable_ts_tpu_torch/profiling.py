@@ -49,17 +49,23 @@ top), its request's id and its thread; counters are named sums. Spans:
   driver, inside ``host_upload_dispatch``).
 - ``decode.prefill``: ``decode_launch``'s work before its loop.
 - ``decode.step``: one iteration of the greedy loop; its one child,
-  ``decode.sync_wait``, is the step's host read (are all rows done?), so
-  the rest of the step is the host queuing the step's work.
+  ``decode.sync_wait``, is the step's host read (are all rows done?),
+  taken after the next step was queued, so the rest of the step is the
+  host queuing the step's work.
 - ``decode.collect``: downloading a decode's outputs, building results.
 
 Counters: ``batched.windows_real`` and ``batched.windows_padded`` (the
 windows of the groups launched), ``decode.tokens_kept`` (the tokens of
 the real windows' results, from each group's first decode),
 ``decode.steps`` and ``decode.row_steps`` (the greedy loops' iterations,
-and those times their rows), ``decode.graph_captures`` and
-``decode.graph_replays`` (the greedy step's CUDA graphs captured, and
-replayed, one replay a step: ``models/whisper/step_graph.py``),
+and those times their rows), ``decode.steps_discarded`` (decoder steps
+queued after a greedy loop's last kept step: at most 1 a loop, when its
+rows end on EOT before ``sample_len``), ``decode.overlapped_steps`` (the
+greedy loop's host reads that found the card still running the step they
+read, so the next step was queued while it ran; 0 on the CPU),
+``decode.graph_captures`` and ``decode.graph_replays`` (the greedy
+step's CUDA graphs captured, and replayed, one replay a step:
+``models/whisper/step_graph.py``),
 ``decode.eager_steps`` (decoder steps of any loop queued eagerly, kernel
 by kernel), ``encoder.windows`` (real windows encoded)
 and, on the card, ``encoder.device_ms``: the encoder's device time

@@ -778,7 +778,9 @@ def test_greedy_step_graph_equals_eager(cuda, wide_model, monkeypatch, sample_le
     tok, lp, sums, counts = _greedy(wide_model, feats, sample_len, monkeypatch)
     e_tok, e_lp, e_sums, e_counts = _greedy(wide_model, feats, sample_len,
                                             monkeypatch, eager=True)
-    steps = len(tok) - 1      # decoder steps: the last token needs none
+    # decoder steps: the last token needs none; a loop that ends on EOT
+    # before sample_len queues one more, which it discards
+    steps = len(tok) - 1 + counts['decode.steps_discarded']
     assert counts['decode.graph_replays'] + counts['decode.eager_steps'] == steps
     assert counts['decode.graph_replays'] >= steps - 2
     assert e_counts['decode.graph_replays'] == 0 and e_counts['decode.eager_steps'] == steps
@@ -805,7 +807,7 @@ def test_step_graph_second_group_equals_eager(cuda, wide_model, monkeypatch):
     del held
     e_tok, e_lp, e_sums, _ = _greedy(wide_model, feats, 60, monkeypatch, eager=True)
     assert counts['decode.graph_captures'] == counts['decode.eager_steps'] == 0
-    assert counts['decode.graph_replays'] == len(tok) - 1
+    assert counts['decode.graph_replays'] == len(tok) - 1 + counts['decode.steps_discarded']
     assert torch.equal(tok, e_tok) and torch.equal(lp, e_lp) and torch.equal(sums, e_sums)
 
 
@@ -821,6 +823,68 @@ def test_step_graph_counts_the_eager_launches(cuda, wide_model, monkeypatch):
         counts.append(_build.launch_counts())
     assert counts[0]['self_attn_decode'] == counts[0]['cross_attn_decode'] == 4 * 39
     assert counts[1] == counts[0] and counts[2] == counts[0]
+
+
+@pytest.mark.parametrize('finish', [None, 20], ids=['sample_len', 'eot'])
+def test_greedy_loop_reads_no_cuda_tensor(cuda, wide_model, monkeypatch, finish):
+    """During the greedy loop the host reads no CUDA tensor: no
+    ``__bool__``, ``item``, ``cpu``, ``tolist`` or ``numpy`` of one runs; it
+    waits on one event a read and reads the stop flag from pinned memory.
+    The graphed loop's tokens, step log-probabilities and sums equal the
+    eager loop's, also when the rows are made to end on EOT (row r from pick
+    ``finish + r % 4`` on) before sample_len and the step queued after the
+    last kept one is discarded."""
+    from stable_ts_tpu_torch.models.whisper import decoding
+    feats = _randn(cuda, 32, 1500, 1280, dtype=torch.bfloat16)
+    select, loop = decoding.select_from_aggregates, decoding._greedy_loop
+    reads, eot = collections.Counter(), []
+
+    def forcing_select(agg, with_grammar=True):
+        tok, lp = select(agg, with_grammar)
+        if finish is not None:
+            rows = torch.arange(tok.shape[0], device=tok.device)
+            tok = torch.where(finish + rows % 4 <= reads['picks'], eot[0], tok)
+        reads['picks'] += 1
+        return tok, lp
+
+    def guarded_loop(*args, **kwargs):
+        eot.append(kwargs['eot'])
+        reads['picks'] = 0
+        with monkeypatch.context() as m:
+            for attr in ('__bool__', 'item', 'cpu', 'tolist', 'numpy'):
+                def guarded(t, *a, _real=getattr(torch.Tensor, attr), _attr=attr, **k):
+                    if t.is_cuda:
+                        raise AssertionError(f'{_attr} of a CUDA tensor in the greedy loop')
+                    reads[_attr] += 1
+                    return _real(t, *a, **k)
+                m.setattr(torch.Tensor, attr, guarded)
+
+            def counted_wait(event, _real=torch.cuda.Event.synchronize):
+                reads['event'] += 1
+                return _real(event)
+            m.setattr(torch.cuda.Event, 'synchronize', counted_wait)
+            return loop(*args, **kwargs)
+
+    runs = []
+    for eager in (False, True):
+        reads.clear()
+        with monkeypatch.context() as m:
+            m.setattr(decoding, '_greedy_loop', guarded_loop)
+            m.setattr(decoding, 'select_from_aggregates', forcing_select)
+            runs.append((_greedy(wide_model, feats, 40, monkeypatch, eager=eager),
+                         dict(reads)))
+    ((tok, lp, sums, counts), got), ((e_tok, e_lp, e_sums, e_counts), e_got) = runs
+    n = len(tok)
+    early = finish is not None
+    assert n == (finish + 4 if early else 40)
+    assert bool((tok[-1] == eot[0]).all()) == early
+    # the loop reads each kept step's flag but the last, ended by sample_len
+    assert got['event'] == got['__bool__'] == n - 1 + early == e_got['event']
+    assert set(got) == {'picks', 'event', '__bool__'}
+    assert counts['decode.steps_discarded'] == e_counts['decode.steps_discarded'] == early
+    assert counts['decode.graph_replays'] + counts['decode.eager_steps'] == n - 1 + early
+    assert counts['decode.overlapped_steps'] <= got['event']
+    assert torch.equal(tok, e_tok) and torch.equal(lp, e_lp) and torch.equal(sums, e_sums)
 
 
 @pytest.mark.parametrize('options', [dict(temperature=0.5), dict(temperature=0.5, best_of=2),

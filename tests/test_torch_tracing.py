@@ -152,7 +152,9 @@ def test_steps_match_the_loop(model, audio, monkeypatch):
 def test_greedy_loop_reads_the_device_once_a_step(monkeypatch, on, finish_at):
     """The loop on stubs: every row reaches EOT at step ``finish_at``
     (None: never, sample_len 5 ends it). Host reads, spans and counters,
-    with the recorder off and on."""
+    with the recorder off and on. The flag is read one step late, so a
+    loop that ends on EOT before sample_len queues one decoder step more
+    than it keeps."""
     eot, sample_len, rows = 9, 5, 3
     calls = collections.Counter()
     real_bool = torch.Tensor.__bool__
@@ -182,11 +184,102 @@ def test_greedy_loop_reads_the_device_once_a_step(monkeypatch, on, finish_at):
     n = sample_len if finish_at is None else finish_at + 1
     reads = n - 1 if n == sample_len else n
     assert tokens.shape == (rows, n)
-    assert (calls['select'], calls['step'], calls['bool']) == (n, n - 1, reads)
+    assert (calls['select'], calls['step'], calls['bool']) == (n, reads, reads)
     if on:
         assert len(rec.named('decode.step')) == rec.counters['decode.steps'] == n
         assert len(rec.named('decode.sync_wait')) == reads
         assert rec.counters['decode.row_steps'] == rows * n
+        assert rec.counters.get('decode.steps_discarded', 0) == reads - (n - 1)
+
+
+def _straight_greedy(select, step, epilogue, agg, *, rows, sample_begin,
+                     sample_len, eot, ts_begin):
+    """The greedy loop written plainly: each step's flag read before the
+    next step is queued, the grammar flags from the token history."""
+    finished = torch.zeros(rows, dtype=torch.bool)
+    sum_logprobs = torch.zeros(rows, dtype=torch.float32)
+    history = []
+    for i in range(sample_len):
+        tok, lp = select(agg, True)
+        sum_logprobs += torch.where(finished, 0.0, lp)
+        tok = torch.where(finished, eot, tok)
+        history.append(tok)
+        finished = finished | (tok == eot)
+        if i + 1 == sample_len or bool(finished.all()):
+            break
+        flags = []
+        for r in range(rows):
+            seq = [int(t[r]) for t in history]
+            stamps = [t - ts_begin for t in seq if t >= ts_begin]
+            max_ts = max(stamps) if stamps else -1
+            last_ts = seq[-1] >= ts_begin
+            penult_ts = len(seq) < 2 or seq[-2] >= ts_begin
+            text_ban, ts_ban = last_ts and not penult_ts, last_ts and penult_ts
+            flags.append([int(text_ban), int(ts_ban), int(max_ts >= 0),
+                          max_ts if text_ban else max_ts + 1])
+        agg = epilogue(step(tok[:, None], sample_begin + i, return_hidden=True),
+                       torch.tensor(flags, dtype=torch.int32))
+    return torch.stack(history, dim=1), sum_logprobs
+
+
+@pytest.mark.parametrize('finish', [(None, None, None), (0, 0, 0), (2, 2, 2),
+                                    (4, 4, 4), (1, None, 3), (0, 3, 1)],
+                         ids=['none', 'at0', 'at2', 'at4', 'mix_open', 'mix_at3'])
+def test_greedy_loop_reads_the_stop_flag_one_step_late(monkeypatch, finish):
+    """The loop on stubs whose tokens follow the step, the epilogue and
+    the grammar flags, row r reaching EOT at its pick ``finish[r]`` (None:
+    never; sample_len 5), against :func:`_straight_greedy`: the same
+    tokens and sums bit for bit, the pick called once a kept step on the
+    same aggregates in order, and one discarded step exactly when the
+    loop ends on EOT before sample_len."""
+    eot, ts_begin, sample_len, rows = 99, 100, 5, 3
+
+    def stubs():
+        seen = {'agg': [], 'steps': 0}
+
+        def select(agg, with_grammar):
+            k = len(seen['agg'])
+            seen['agg'].append(agg)
+            score = agg.sum(dim=1)
+            tok = 90 + (score.abs() * 1000).long() % 31    # text and timestamps
+            tok = torch.where(tok == eot, tok + 1, tok)
+            tok = torch.where(torch.tensor([f == k for f in finish]), eot, tok)
+            return tok, -score.abs() * 0.1
+
+        def step(tokens, pos, return_hidden=True):
+            seen['steps'] += 1
+            return torch.sin(tokens.float() * 0.37 + pos * 1.3 + torch.arange(4.0)
+                             + torch.arange(rows)[:, None] * 0.7)
+
+        def epilogue(x, flags):
+            return (torch.cat([x, flags[:, :2].float()], dim=1)
+                    + flags[:, 2:3].float() * 0.5 + flags[:, 3:].float() * 0.01)
+        return seen, select, step, epilogue
+
+    agg0 = torch.linspace(-1.0, 1.0, rows * 6).reshape(rows, 6)
+    ref_seen, select, step, epilogue = stubs()
+    want_tok, want_sums = _straight_greedy(
+        select, step, epilogue, agg0, rows=rows, sample_begin=3,
+        sample_len=sample_len, eot=eot, ts_begin=ts_begin)
+    seen, select, step, epilogue = stubs()
+    monkeypatch.setattr(decoding, 'logit_aggregates', lambda logits, ts: logits)
+    monkeypatch.setattr(decoding, 'select_from_aggregates', select)
+    with profiling.recording() as rec:
+        tokens, sums = decoding._greedy_loop(
+            step, lambda logits, *a: logits, agg0, epilogue, sample_begin=3,
+            sample_len=sample_len, eot=eot, ts_begin=ts_begin, with_grammar=True)
+    n = want_tok.shape[1]
+    early = None not in finish and max(finish) + 1 < sample_len
+    assert n == (max(finish) + 1 if early else sample_len)
+    if None in finish:      # the grammar flags took part
+        assert (want_tok >= ts_begin).any() and (want_tok < eot).any()
+    assert torch.equal(tokens, want_tok) and torch.equal(sums, want_sums)
+    assert len(seen['agg']) == len(ref_seen['agg']) == n
+    assert all(torch.equal(a, b) for a, b in zip(seen['agg'], ref_seen['agg']))
+    assert rec.counters.get('decode.steps_discarded', 0) == int(early)
+    assert seen['steps'] == ref_seen['steps'] + int(early) == n - 1 + int(early)
+    assert rec.counters['decode.steps'] == n
+    assert 'decode.overlapped_steps' not in rec.counters    # the CPU reads in place
 
 
 def test_host_reads_equal_on_and_off(model, audio, monkeypatch):
