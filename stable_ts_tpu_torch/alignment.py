@@ -4,15 +4,18 @@
 ``align`` and ``align_words`` build the engine-agnostic
 :class:`~.non_whisper.alignment.Aligner` around inference functions that
 run the model: mel -> encoder -> teacher-forced capture pass -> head
-weights -> DTW. With the legacy
-aligner and known heads, one window's pass is
-:func:`~.models.whisper.timing._fused_align_window` (the capture narrowed
-to the alignment heads, one download of the DTW cost and the token
-probabilities); otherwise it goes through ``add_word_timestamps``, as
-``transcribe`` does. ``align_words(parallel=True)`` runs one encoder pass
-and one capture pass over every segment at once, then one batched head
-weighting and one DTW launch for all of them (known heads), or
-``add_word_timestamps(precomputed=...)`` a segment at a time.
+weights -> DTW. With the legacy aligner and known heads, the capture,
+weights and DTW cost are
+:func:`~.models.whisper.timing.known_heads_pass` (the capture narrowed to
+the alignment heads), one window at a time through
+:func:`~.models.whisper.timing._fused_align_window` (one download of the
+DTW cost and the token probabilities), and the words come from
+``words_from_jumps`` and ``attach_words``; otherwise a window goes
+through ``add_word_timestamps``, as ``transcribe`` does.
+``align_words(parallel=True)`` runs one encoder pass and one capture pass
+over every segment at once: with known heads one ``known_heads_pass`` for
+all of them, else ``add_word_timestamps(precomputed=...)`` a segment at a
+time.
 
 ``refine`` builds the engine-agnostic
 :class:`~.non_whisper.refinement.Refiner` around the teacher-forced
@@ -33,16 +36,20 @@ import numpy as np
 import torch
 
 from .constants import (CHUNK_LENGTH, FRAMES_PER_SECOND, HOP_LENGTH, N_FFT,
-                        N_FRAMES, N_SAMPLES, N_SAMPLES_PER_TOKEN, SAMPLE_RATE,
-                        TOKENS_PER_SECOND)
-from .batched import _next_token_probs_and_ranks
+                        N_FRAMES, N_SAMPLES, N_SAMPLES_PER_TOKEN, SAMPLE_RATE)
 from .backends.faster_whisper import (fw_alignment_func, fw_refinement_func,
                                       fw_tokenizer, is_faster_whisper_model)
 from .models.whisper.model import decoder_apply, decoder_step, encoder_apply
+from .models.whisper.timing import (_fused_align_window, _next_token_probs,
+                                    _next_token_probs_and_ranks,
+                                    add_word_timestamps, attach_words,
+                                    build_head_capture_table, known_heads_pass,
+                                    split_word_tokens, words_from_jumps)
 from .non_whisper.alignment import Aligner, WordToken
 from .non_whisper.refinement import MutedSpanProbe, Refiner
+from .ops.dtw import dtw_jumps_batched
 from .ops.median import median_filter
-from .ops.mel import log_mel_spectrogram
+from .ops.mel import log_mel_spectrogram, log_mel_windowed
 from .options import AllOptions
 from .profiling import traced
 from .result import Segment, WhisperResult
@@ -85,18 +92,15 @@ def _fused_single_window_func(model, tokenizer) -> Callable:
     :func:`~.models.whisper.timing._fused_align_window`. Token rows bucket
     to 32, as in the JAX package (where the bucket bounds the compile
     set)."""
-    from .models.whisper.timing import (_fused_align_window,
-                                        build_head_capture_table)
-
     capture_index, slots = build_head_capture_table(
         model.alignment_heads, model.dims.n_text_layer)
+    slots = torch.as_tensor(slots, device=model.device)
     sot_seq = list(tokenizer.sot_sequence)
     sot_len = len(sot_seq)
 
     def compute_timestamps(audio_segment: np.ndarray,
                            word_tokens: List[WordToken]) -> List[dict]:
-        word_tokens_l = [wt.tokens for wt in word_tokens]
-        text_tokens = [t for toks in word_tokens_l for t in toks]
+        text_tokens = [t for wt in word_tokens for t in wt.tokens]
         segment_samples = int(np.asarray(audio_segment).shape[-1])
         audio = np.zeros((1, N_SAMPLES), np.float32)
         n_real = min(segment_samples, N_SAMPLES)
@@ -108,45 +112,28 @@ def _fused_single_window_func(model, tokenizer) -> Callable:
         tokens[0, :len(row)] = row
         n_text = len(text_tokens)
         qk_len = round(min(segment_samples, N_SAMPLES) / N_SAMPLES_PER_TOKEN)
-        packed = _fused_align_window(
+        jumps, probs = _fused_align_window(
             model.params, capture_index, slots,
             torch.from_numpy(audio).to(model.device),
             torch.from_numpy(tokens).to(model.device),
             max(qk_len, 1), n_text + 1, n_mels=model.dims.n_mels,
             sot_len=sot_len, eot=tokenizer.eot)
-        t_rows = t_pad - sot_len - 1
-        jump_times = packed[:t_rows] / TOKENS_PER_SECOND
-        probs = packed[t_rows:]
-        text_token_probs = probs[sot_len:sot_len + n_text]
-
-        return _assemble_word_dicts(word_tokens, word_tokens_l, jump_times,
-                                    text_token_probs, tokenizer)
+        return _segment_words(word_tokens, jumps,
+                              probs[sot_len:sot_len + n_text])
 
     return compute_timestamps
 
 
-def _assemble_word_dicts(word_tokens, word_tokens_l, jump_times,
-                         text_token_probs, tokenizer) -> List[dict]:
-    """Host word assembly shared by the fused single-window and batched
-    align paths: the structure add_word_timestamps produces with this
-    path's arguments (no gap padding entries exist, and the empty
-    punctuation sets make merge_punctuations a no-op)."""
-    from .models.whisper.timing import WordTimingRaw, merge_punctuations
-    words = [wt.word for wt in word_tokens] \
-        + [tokenizer.decode([tokenizer.eot])]
-    wts = list(word_tokens_l) + [[tokenizer.eot]]
-    bounds = np.pad(np.cumsum([len(t) for t in wts[:-1]]), (1, 0))
-    starts, ends = jump_times[bounds[:-1]], jump_times[bounds[1:]]
-    word_probs = [float(np.mean(text_token_probs[a:b]))
-                  for a, b in zip(bounds[:-1], bounds[1:])]
-    alignment = [WordTimingRaw(w, tk, float(s), float(e), p)
-                 for w, tk, s, e, p in zip(words, wts, starts, ends,
-                                           word_probs)]
-    merge_punctuations(alignment, '', '')
-    return [dict(word=t.word, start=round(t.start, 3),
-                 end=round(t.end, 3), probability=t.probability,
-                 tokens=t.tokens)
-            for t in alignment[:len(word_tokens)] if len(t.tokens)]
+def _segment_words(word_tokens: List[WordToken], jump_indices,
+                   text_token_probs) -> List[dict]:
+    """One segment's word dicts as ``add_word_timestamps`` makes them with
+    align's arguments: no gap padding, no punctuation to merge, offset 0."""
+    alignment = words_from_jumps([wt.word for wt in word_tokens],
+                                 [wt.tokens for wt in word_tokens],
+                                 jump_indices, text_token_probs)
+    segment = dict(words=[])
+    attach_words([segment], alignment, [0] * len(alignment), 0.0, 0.0, '', '')
+    return segment['words']
 
 
 def _whisper_alignment_func(model, tokenizer, options: AllOptions) -> Callable:
@@ -156,7 +143,6 @@ def _whisper_alignment_func(model, tokenizer, options: AllOptions) -> Callable:
         return fw_alignment_func(model, tokenizer)
     if _legacy_known_heads(model, options):
         return _fused_single_window_func(model, tokenizer)
-    from .models.whisper.timing import add_word_timestamps
 
     def compute_timestamps(audio_segment: np.ndarray,
                            word_tokens: List[WordToken]) -> List[dict]:
@@ -201,19 +187,13 @@ def _whisper_alignment_batch_func(model, tokenizer, options: AllOptions) -> Call
     logic. On a mesh each rank takes its rows (``model.shard_batch``, as
     the JAX package does here) and the token probabilities, the DTW costs
     or the capture are gathered over dp before they go to the host."""
-    from .batched import _dtw_cost_batched, _next_token_probs
-    from .models.whisper.timing import (add_word_timestamps,
-                                        build_head_capture_table,
-                                        legacy_weights_batched)
-    from .ops.dtw import dtw_jumps_batched
-    from .ops.mel import log_mel_windowed
-
     sot_seq = list(tokenizer.sot_sequence)
     sot_len = len(sot_seq)
     capture_index = capture_slots = None
     if _legacy_known_heads(model, options):
         capture_index, capture_slots = build_head_capture_table(
             model.alignment_heads, model.dims.n_text_layer)
+        capture_slots = torch.as_tensor(capture_slots, device=model.device)
 
     @torch.inference_mode()
     def batch_func(requests):
@@ -240,25 +220,14 @@ def _whisper_alignment_batch_func(model, tokenizer, options: AllOptions) -> Call
         for i, row in enumerate(rows):
             tok_batch[i, :len(row)] = row
 
-        device = model.device
         # dp-split on a mesh (segments are independent); every consumer
         # below indexes < len(metas) of the gathered rows
         audio_in, _ = model.shard_batch(audio_batch)
         tokens_in, _ = model.shard_batch(tok_batch)
         mel_batch = log_mel_windowed(audio_in, model.dims.n_mels, N_FRAMES)
-        xa = encoder_apply(model.params.encoder, mel_batch)
-        logits, qks = decoder_apply(model.params.decoder, tokens_in, xa,
-                                    capture_qk=True,
-                                    capture_index=capture_index)
-        # the realized next tokens' probabilities, gathered on the device
-        tok_probs_dev = _next_token_probs(logits, tokens_in, tokenizer.eot)
-        del logits, xa
         if capture_slots is not None:
             # known heads: head weights, the DTW cost and one download for
             # every segment at once; the traceback on the host
-            layers = torch.tensor([l for l, _ in capture_slots], device=device)
-            cols = torch.tensor([s for _, s in capture_slots], device=device)
-            sel = qks[layers, :, cols]                  # (n_sel, B, T, 1500)
             qk_lens = [round(min(samples, N_SAMPLES) / N_SAMPLES_PER_TOKEN)
                        or 1 for _, _, samples in metas]
             row_counts = [len(text_tokens) + 1
@@ -267,23 +236,24 @@ def _whisper_alignment_batch_func(model, tokenizer, options: AllOptions) -> Call
                 qk_lens + [1] * (pad_rows - len(metas))))
             rows_in, _ = model.shard_batch(np.asarray(
                 row_counts + [1] * (pad_rows - len(metas))))
-            mats = legacy_weights_batched(sel, qk_lens_in, rows_in, sot_len,
-                                          1.0, 7)
-            cost = model.gather_batch(
-                _dtw_cost_batched(-mats))[:len(metas)].cpu().numpy()
+            tok_probs, cost = known_heads_pass(
+                model.params.decoder, tokens_in,
+                encoder_apply(model.params.encoder, mel_batch), capture_index,
+                capture_slots, qk_lens_in, rows_in, sot_len, tokenizer.eot)
+            cost = model.gather_batch(cost)[:len(metas)].cpu().numpy()
             jumps = dtw_jumps_batched(cost, row_counts, qk_lens)
-            tok_probs = model.gather_batch(tok_probs_dev).cpu().numpy()
-            outputs = []
-            for i, (word_tokens, text_tokens, _) in enumerate(metas):
-                n_text = len(text_tokens)
-                jump_times = jumps[i, :row_counts[i]] / TOKENS_PER_SECOND
-                probs = tok_probs[i, sot_len:sot_len + n_text]
-                outputs.append(_assemble_word_dicts(
-                    word_tokens, [wt.tokens for wt in word_tokens],
-                    jump_times, probs, tokenizer))
-            return outputs
+            tok_probs = model.gather_batch(tok_probs).cpu().numpy()
+            return [_segment_words(wts, jumps[i, :row_counts[i]],
+                                   tok_probs[i, sot_len:sot_len + len(text)])
+                    for i, (wts, text, _) in enumerate(metas)]
 
         # dynamic / 'new': needs every head
+        xa = encoder_apply(model.params.encoder, mel_batch)
+        logits, qks = decoder_apply(model.params.decoder, tokens_in, xa,
+                                    capture_qk=True)
+        # the realized next tokens' probabilities, gathered on the device
+        tok_probs_dev = _next_token_probs(logits, tokens_in, tokenizer.eot)
+        del logits, xa
         qks_host = model.gather_batch(qks, dim=1).cpu()
         del qks
         tok_probs = model.gather_batch(tok_probs_dev).cpu().numpy()
@@ -866,9 +836,6 @@ def locate(
                                           build_suppress_list)
     from .models.whisper.model import (decoder_prefill, fuse_self_qkv,
                                        precompute_cross_kv_t)
-    from .models.whisper.timing import (add_word_timestamps,
-                                        build_head_capture_table,
-                                        split_word_tokens)
     denoiser, denoiser_options = convert_demucs_kwargs(
         denoiser, denoiser_options, demucs=demucs,
         demucs_options=demucs_options)

@@ -7,17 +7,21 @@ and its features feed every temperature-fallback rung and the word-timing
 pass. The word-timing pass runs batched over right-padded token rows
 (exact under the causal mask): one teacher-forced capture pass a group,
 the head weights scored on the device (all windows at once with known
-heads, one window at a time with dynamic heads or the 'new' aligner), and
-one DTW-cost launch for the group. ``condition_on_previous_text=True``
+heads, ``models/whisper/timing.py:known_heads_pass``; one window at a
+time with dynamic heads or the 'new' aligner), and one DTW-cost launch
+for the group. ``condition_on_previous_text=True``
 chains GROUPS: every window of group g is prompted with the decoded tail
 of group g-1, with the reference's T > 0.5 prompt reset.
 
 The groups move through JAX's three-stage pipeline in its order: the
 decode of group g, then the collection (fallback, segments) and the
 word-timing launch of group g-1, then the word assembly of group g-2. JAX
-gets its overlap from asynchronous dispatch; the port's decode loops read
-the device every step to stop, so the decode of a group has ended when
-:meth:`decode_launch` returns. The port's overlap comes from a second CUDA
+gets its overlap from asynchronous dispatch. The port's decode loops wait
+on the device to stop: the greedy loop reads its stop flag one step late
+(the card runs step i while the host queues step i + 1), the sampling and
+beam loops every step. So the decode of a group has ended when
+:meth:`decode_launch` returns, but for the one step a greedy loop queues
+past its stop. The port's overlap comes from a second CUDA
 stream instead: a group's word-timing pass is queued there, ordered after
 the group's features by an event, and its kernels fill the gaps of the
 next group's decode on the main stream; its results (each window's token
@@ -57,6 +61,13 @@ from .constants import (N_FRAMES, N_SAMPLES, N_SAMPLES_PER_TOKEN, SAMPLE_RATE,
 from .defaults import (get_append_punctuations, get_min_word_dur,
                        get_prepend_punctuations)
 from .models.whisper.decoding import DecodingOptions
+from .models.whisper.model import decoder_apply
+from .models.whisper.timing import (_next_token_probs, attach_words,
+                                    build_head_capture_table,
+                                    dynamic_weights_device, known_heads_pass,
+                                    new_aligner_matrix_device,
+                                    parse_dynamic_heads, split_word_tokens,
+                                    words_from_jumps)
 from .ops.dtw import dtw_cost, dtw_jumps_batched
 from .ops.mel import log_mel_spectrogram
 from .parallel.mesh import batch_rows
@@ -90,40 +101,6 @@ def _hp(name: str, t0: int):
     t1 = time.perf_counter_ns()
     HOST_PHASES[name] = HOST_PHASES.get(name, 0.0) + (t1 - t0) / 1e9
     profiling.close_at(name, t1)
-
-
-def _next_token_probs(logits: torch.Tensor, tokens: torch.Tensor,
-                      eot: int) -> torch.Tensor:
-    """(B, T, V) logits + (B, T) realized tokens -> (B, T-1) probability of
-    the token that actually follows, soft-maxed over the text vocabulary
-    only (``[:eot]``, the reference's timing.py:62-63). Positions whose
-    next token is not a text token are discarded by the caller, so the
-    clipped index is never read (batched.py:70-94)."""
-    probs = torch.softmax(logits[:, :-1, :eot].float(), dim=-1)
-    idx = tokens[:, 1:, None].long().clamp(0, eot - 1)
-    return probs.gather(-1, idx)[..., 0]
-
-
-def _next_token_probs_and_ranks(logits: torch.Tensor, tokens: torch.Tensor,
-                                eot: int):
-    """(B, T, V) logits + (B, T) realized tokens -> the next token's
-    probability and its rank in an ascending stable sort of the text
-    vocabulary's distribution, both (B, T-1) (batched.py:100-130): the
-    count of smaller logits plus the tied logits at a lower index, on raw
-    logits (the softmax keeps the order)."""
-    lg = logits[:, :-1, :eot].float()
-    idx = tokens[:, 1:, None].long().clamp(0, eot - 1)
-    v = lg.gather(-1, idx)
-    vocab = torch.arange(eot, device=lg.device)
-    ranks = ((lg < v).sum(dim=-1, dtype=torch.int32)
-             + ((lg == v) & (vocab < idx)).sum(dim=-1, dtype=torch.int32))
-    per_token = torch.softmax(lg, dim=-1).gather(-1, idx)[..., 0]
-    return per_token, ranks
-
-
-def _dtw_cost_batched(neg_matrices: torch.Tensor) -> torch.Tensor:
-    """The DTW costs of a (B, N, M) batch, one kernel launch for all."""
-    return dtw_cost(neg_matrices)
 
 
 class _Group:
@@ -746,9 +723,9 @@ def _transcribe_batched_impl(
         """Host: wait for the timing pass, assemble words, suppress, emit."""
         if grp.timing is not None:
             _t0 = _phase('host_timing_finish')
-            _finish_word_timing(model, tokenizer, grp.timing, grp.metas,
-                                grp.segments, prepend_punctuations,
-                                append_punctuations, min_word_dur)
+            _finish_word_timing(model, grp.timing, grp.metas, grp.segments,
+                                prepend_punctuations, append_punctuations,
+                                min_word_dur)
             _hp('host_timing_finish', _t0)
             grp.timing = None
         _t0 = _phase('host_assemble_suppress')
@@ -905,11 +882,6 @@ def _launch_word_timing(model, tokenizer, features, metas,
     after a window's real tokens cannot change its tokens' logits or
     attention rows. Returns the queued work and the host bookkeeping for
     :func:`_finish_word_timing`, or None if no window produced segments."""
-    from .models.whisper.model import decoder_apply
-    from .models.whisper.timing import (build_head_capture_table,
-                                        legacy_weights_batched,
-                                        split_word_tokens)
-
     prep = []
     for segs in per_window_segments:
         if not segs:
@@ -942,11 +914,6 @@ def _launch_word_timing(model, tokenizer, features, metas,
     # rows, (L, B, slots, T, 1500) instead of every head
     legacy_known = (aligner == 'legacy' and not isinstance(aligner, dict)
                     and model.alignment_heads is not None and not dynamic_heads)
-    capture_index = capture_slots = None
-    if legacy_known:
-        capture_index, capture_slots = build_head_capture_table(
-            model.alignment_heads, model.dims.n_text_layer)
-
     max_qk_lens = [round(metas[i]['samples'] / N_SAMPLES_PER_TOKEN)
                    for i in todo]
     row_counts = [len(prep[i][0]) + 1 for i in todo]  # n_text + 1
@@ -975,30 +942,27 @@ def _launch_word_timing(model, tokenizer, features, metas,
         # (JAX: shard_batch, batched.py:972-973)
         pos_in, _ = model.shard_batch(np.asarray(pos))
         tokens_in, _ = model.shard_batch(tokens_arr[tok_rows])
-        if capture_slots is not None:
+        if legacy_known:
+            capture_index, slots = build_head_capture_table(
+                model.alignment_heads, model.dims.n_text_layer)
             lens_in, _ = model.shard_batch(np.asarray(qk_lens_in))
             counts_in, _ = model.shard_batch(np.asarray(rows_in))
-            slots_in = torch.as_tensor(capture_slots, device=device)
-        logits, qks = decoder_apply(model.params.decoder, tokens_in,
-                                    features[pos_in], capture_qk=True,
-                                    capture_index=capture_index)
-        # per-position probability of the realized next token: the only
-        # thing the word assembly needs from the logits
-        out['tok_probs'] = _to_host(model.gather_batch(_next_token_probs(
-            logits, tokens_in, tokenizer.eot)))
-        del logits
-        if capture_slots is not None:
+            slots_in = torch.as_tensor(slots, device=device)
             # every window, full or short, takes the batched weights: the
             # reflect continuation reproduces the reference's crop-first
             # filter (timing.py:legacy_weights_batched)
-            sel = qks[slots_in[:, 0], :, slots_in[:, 1]]  # (n_sel, B, T, 1500)
-            mats = legacy_weights_batched(sel, lens_in, counts_in, sot_len,
-                                          1.0, 7)
-            del sel
+            probs, cost = known_heads_pass(
+                model.params.decoder, tokens_in, features[pos_in],
+                capture_index, slots_in, lens_in, counts_in, sot_len,
+                tokenizer.eot)
         else:
             # the full capture (dynamic heads, the 'new' aligner, unknown
             # heads): scored one window at a time on the device; the
             # capture never leaves it
+            logits, qks = decoder_apply(model.params.decoder, tokens_in,
+                                        features[pos_in], capture_qk=True)
+            probs = _next_token_probs(logits, tokens_in, tokenizer.eot)
+            del logits
             matrices = [_device_matrix(model, qks, k, max_qk_lens[g],
                                        row_counts[g], sot_len, None,
                                        dynamic_heads, aligner)
@@ -1008,8 +972,14 @@ def _launch_word_timing(model, tokenizer, features, metas,
             del matrices
             if _dynamic_iterations(dynamic_heads, aligner) > 1:
                 out['qks_dev'] = qks  # kept for the refinement passes
-        out['cost'] = _to_host(model.gather_batch(_dtw_cost_batched(-mats)))
-        del mats, qks
+            del qks
+            cost = dtw_cost(-mats)
+            del mats
+        # per-position probability of the realized next token: the only
+        # thing the word assembly needs from the logits
+        out['tok_probs'] = _to_host(model.gather_batch(probs))
+        out['cost'] = _to_host(model.gather_batch(cost))
+        del probs, cost
         if stream is not None:
             out['ready'] = torch.cuda.Event()
             out['ready'].record(stream)
@@ -1027,7 +997,6 @@ def _local_windows(lo: int, hi: int, n_todo: int):
 def _dynamic_iterations(dynamic_heads, aligner) -> int:
     """Iteration count of the iterated dynamic-head refinement (reference
     timing.py:254-265: 'count,iterations' string form)."""
-    from .models.whisper.timing import parse_dynamic_heads
     if aligner != 'legacy' or isinstance(aligner, dict):
         return 1
     return parse_dynamic_heads(dynamic_heads)[1]
@@ -1038,9 +1007,6 @@ def _device_matrix(model, qks, k: int, qk_len: int, row_count: int,
     """One window's head-scored alignment matrix, computed on the device
     from the resident (L, B, H, T, 1500) capture (the sequential driver's
     dispatch rules, timing.py:find_alignment)."""
-    from .models.whisper.timing import (dynamic_weights_device,
-                                        new_aligner_matrix_device,
-                                        parse_dynamic_heads)
     qk = qks[:, k]
     if aligner != 'legacy' or isinstance(aligner, dict):
         kwargs = dict(topk=20, w_colnorm=1.0, w_rownorm=1.0, w_coverage=0.0)
@@ -1059,14 +1025,11 @@ def _device_matrix(model, qks, k: int, qk_len: int, row_count: int,
                                   medfilt_width=7, heads_count=count)
 
 
-def _finish_word_timing(model, tokenizer, pending, metas,
-                        per_window_segments, prepend_punctuations,
-                        append_punctuations, min_word_dur):
+def _finish_word_timing(model, pending, metas, per_window_segments,
+                        prepend_punctuations, append_punctuations,
+                        min_word_dur):
     """Wait for the queued timing work, walk the DTW tracebacks on the host
-    and assemble per-word dicts (batched.py:1087-1207)."""
-    from .models.whisper.timing import (WordTimingRaw, merge_punctuations,
-                                        pop_empty_alignment)
-
+    and attach each window's words to its segments (batched.py:1087-1207)."""
     prep, todo = pending['prep'], pending['todo']
     sot_len = pending['sot_len']
     max_qk_lens, row_counts = pending['max_qk_lens'], pending['row_counts']
@@ -1102,52 +1065,17 @@ def _finish_word_timing(model, tokenizer, pending, metas,
                 # pad to the device batch: one DTW launch a pass
                 matrices += [matrices[-1]] * (qks.shape[1] - len(matrices))
                 cost = model.gather_batch(
-                    _dtw_cost_batched(-torch.stack(matrices))).cpu().numpy()
+                    dtw_cost(-torch.stack(matrices))).cpu().numpy()
                 jumps_np = dtw_jumps_batched(cost[:n_todo], row_counts,
                                              max_qk_lens)
         del qks
 
     for k, i in enumerate(todo):
-        text_tokens, token_split, seg_indices = prep[i]
-        meta = metas[i]
+        text_tokens, (words, word_tokens), seg_indices = prep[i]
         n_text = len(text_tokens)
-        text_token_probs = tok_probs_all[k, sot_len:sot_len + n_text].tolist()
-
-        words, word_tokens = token_split
-        words = list(words) + [tokenizer.decode([tokenizer.eot])]
-        word_tokens = list(word_tokens) + [[tokenizer.eot]]
-        word_boundaries = np.pad(
-            np.cumsum([len(t) for t in word_tokens[:-1]]), (1, 0))
-
-        jump_times = jumps_np[k, :row_counts[k]] / TOKENS_PER_SECOND
-        start_times = jump_times[word_boundaries[:-1]]
-        end_times = jump_times[word_boundaries[1:]]
-        word_probs = [float(np.mean(text_token_probs[a:b]))
-                      for a, b in zip(word_boundaries[:-1],
-                                      word_boundaries[1:])]
-        alignment = [WordTimingRaw(wd, tk, float(s), float(e), p)
-                     for wd, tk, s, e, p in zip(words, word_tokens,
-                                                start_times, end_times,
-                                                word_probs)]
-        segs = per_window_segments[i]
-        alt_begin = pop_empty_alignment(alignment, seg_indices)
-        merge_punctuations(alignment, prepend_punctuations,
-                           append_punctuations)
-        time_offset = meta['seek'] / SAMPLE_RATE
-        for si, timing in zip(seg_indices, alignment):
-            if len(timing.tokens) == 0:
-                continue
-            start, end = timing.start, timing.end
-            if (len(segs[si]['words']) == 0 and (end - start) < min_word_dur
-                    and si in alt_begin):
-                start = alt_begin[si].start
-            segs[si]['words'].append(dict(
-                word=timing.word,
-                start=round(time_offset + start, 3),
-                end=round(time_offset + end, 3),
-                probability=timing.probability,
-                tokens=timing.tokens))
-        for seg in segs:
-            if seg['words']:
-                seg['start'] = seg['words'][0]['start']
-                seg['end'] = seg['words'][-1]['end']
+        alignment = words_from_jumps(
+            words, word_tokens, jumps_np[k, :row_counts[k]],
+            tok_probs_all[k, sot_len:sot_len + n_text].tolist())
+        attach_words(per_window_segments[i], alignment, seg_indices,
+                     metas[i]['seek'] / SAMPLE_RATE, min_word_dur,
+                     prepend_punctuations, append_punctuations)

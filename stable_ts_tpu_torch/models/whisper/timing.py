@@ -19,13 +19,17 @@ capture pass on the same mel and select their own heads; their weights
 join the main model's before the head mean and their token probabilities
 average in. Either way the DTW cost comes from the kernel
 (``ops/dtw.py``), and the host walks the traceback for the per-token jump
-frames. The batched driver scores a group's padded capture pass with the
-masked twins of these scorers: :func:`legacy_weights_batched` (every
-window at once), :func:`dynamic_weights_device` and
-:func:`new_aligner_matrix_device` (one window at a time, the full capture
-kept on the device), each bounding a window by its real frames and token
-rows. The word splitting and assembly helpers below are host code,
-carried over because their JAX module imports jax.
+frames. The batched paths (``batched.py``, ``align``, ``align_words``)
+score a padded capture pass with the masked twins of these scorers:
+:func:`legacy_weights_batched` (every window at once),
+:func:`dynamic_weights_device` and :func:`new_aligner_matrix_device` (one
+window at a time, the full capture kept on the device), each bounding a
+window by its real frames and token rows. With known heads the capture,
+the weights and the DTW cost are one function,
+:func:`known_heads_pass`. Every path turns the jump frames into words
+with :func:`words_from_jumps` and hangs them on their segments with
+:func:`attach_words`. The word splitting and assembly helpers are host
+code, carried over because their JAX module imports jax.
 """
 import string
 from dataclasses import dataclass
@@ -70,10 +74,41 @@ def build_head_capture_table(alignment_heads, n_layers: int):
 
 
 def gather_captured_heads(qks: torch.Tensor, slots) -> torch.Tensor:
-    """(L, max_slots, T, F) selective capture -> (n_sel, T, F) rows."""
-    layers = torch.tensor([layer for layer, _ in slots], device=qks.device)
-    cols = torch.tensor([slot for _, slot in slots], device=qks.device)
-    return qks[layers, cols]
+    """(L, max_slots, ..., T, F) selective capture -> (n_sel, ..., T, F):
+    the known heads' rows. ``slots``: the (layer, slot) pairs of
+    :func:`build_head_capture_table`, or those pairs as an (n_sel, 2)
+    tensor on qks's device."""
+    slots = torch.as_tensor(slots, device=qks.device)
+    return qks[slots[:, 0], slots[:, 1]]
+
+
+def _next_token_probs(logits: torch.Tensor, tokens: torch.Tensor,
+                      eot: int) -> torch.Tensor:
+    """(B, T, V) logits + (B, T) realized tokens -> (B, T-1) probability of
+    the token that actually follows, soft-maxed over the text vocabulary
+    only (``[:eot]``, the reference's timing.py:62-63). Positions whose
+    next token is not a text token are discarded by the caller, so the
+    clipped index is never read (batched.py:70-94)."""
+    probs = torch.softmax(logits[:, :-1, :eot].float(), dim=-1)
+    idx = tokens[:, 1:, None].long().clamp(0, eot - 1)
+    return probs.gather(-1, idx)[..., 0]
+
+
+def _next_token_probs_and_ranks(logits: torch.Tensor, tokens: torch.Tensor,
+                                eot: int):
+    """(B, T, V) logits + (B, T) realized tokens -> the next token's
+    probability and its rank in an ascending stable sort of the text
+    vocabulary's distribution, both (B, T-1) (batched.py:100-130): the
+    count of smaller logits plus the tied logits at a lower index, on raw
+    logits (the softmax keeps the order)."""
+    lg = logits[:, :-1, :eot].float()
+    idx = tokens[:, 1:, None].long().clamp(0, eot - 1)
+    v = lg.gather(-1, idx)
+    vocab = torch.arange(eot, device=lg.device)
+    ranks = ((lg < v).sum(dim=-1, dtype=torch.int32)
+             + ((lg == v) & (vocab < idx)).sum(dim=-1, dtype=torch.int32))
+    per_token = torch.softmax(lg, dim=-1).gather(-1, idx)[..., 0]
+    return per_token, ranks
 
 
 @torch.inference_mode()
@@ -177,41 +212,60 @@ def legacy_weights_batched(qks_sel: torch.Tensor, qk_lens: torch.Tensor,
 
 
 @torch.inference_mode()
-def _fused_align_window(model, capture_index, slots, audio: torch.Tensor,
-                        tokens: torch.Tensor, qk_len: int, row_count: int, *,
-                        n_mels: int, sot_len: int, eot: int,
-                        medfilt_width: int = 7) -> np.ndarray:
+def known_heads_pass(decoder, tokens: torch.Tensor, audio_features: torch.Tensor,
+                     capture_index, slots: torch.Tensor, qk_lens: torch.Tensor,
+                     row_counts: torch.Tensor, sot_len: int, eot: int):
+    """The word-timing pass with known heads, on the device: the
+    teacher-forced decoder over ``tokens`` (B, T), right-padded with EOT
+    (exact under the causal mask), capturing only the heads of
+    ``capture_index``; the next-token probabilities; the heads' rows
+    (``slots``, (n_sel, 2) on the device); their legacy weights bounded by
+    each row's real frames ``qk_lens`` (B,) and token rows ``row_counts``
+    (B,) (n_text + 1); the DTW cost of the negated weights. Returns
+    (probabilities (B, T - 1), cost (B, T - sot_len, F + 1)), left on the
+    device.
+
+    Upload every host value before the call: a copy from pageable memory
+    waits for the work queued ahead of it on its stream."""
+    logits, qks = decoder_apply(decoder, tokens, audio_features,
+                                capture_qk=True, capture_index=capture_index)
+    del audio_features
+    probs = _next_token_probs(logits, tokens, eot)
+    del logits
+    sel = gather_captured_heads(qks.transpose(1, 2), slots)  # (n_sel, B, T, F)
+    del qks
+    mats = legacy_weights_batched(sel, qk_lens, row_counts, sot_len, 1.0, 7)
+    del sel
+    return probs, dtw_cost(-mats)
+
+
+@torch.inference_mode()
+def _fused_align_window(model, capture_index, slots: torch.Tensor,
+                        audio: torch.Tensor, tokens: torch.Tensor, qk_len: int,
+                        row_count: int, *, n_mels: int, sot_len: int, eot: int):
     """A whole single-window timing pass for ``align`` (timing.py:237-279):
-    mel -> encoder -> teacher-forced decoder with the selective capture ->
-    next-token probabilities -> legacy head weights -> DTW cost on the
-    model's device, then one download of the cost and the probabilities
-    and the traceback on the host. JAX compiles this into one program; here
-    it is the same ops in a row.
+    mel -> encoder -> :func:`known_heads_pass` on the model's device, then
+    one download of the cost and the probabilities and the traceback on
+    the host. JAX compiles this into one program; here it is the same ops
+    in a row.
 
     audio: (1, N_SAMPLES) f32, zero-padded to the full window. tokens:
     (1, T_pad) = sot_seq + no_timestamps + text + eot, right-padded with
-    eot (exact under the causal mask). qk_len: real audio frames;
-    row_count: n_text + 1. Returns JAX's packed f32 vector
-    [jump frames (T'), next-token probabilities (T_pad - 1)]."""
-    from ...batched import _next_token_probs
+    eot. qk_len: real audio frames; row_count: n_text + 1. Returns (jump
+    frames (T_pad - sot_len - 1,), next-token probabilities (T_pad - 1,)
+    f32)."""
+    device = tokens.device
+    qk_lens = torch.tensor([qk_len], device=device)
+    row_counts = torch.tensor([row_count], device=device)
     mel = log_mel_spectrogram(audio, n_mels)[..., :N_FRAMES]
-    xa = encoder_apply(model.encoder, mel)
-    logits, qks = decoder_apply(model.decoder, tokens, xa, capture_qk=True,
-                                capture_index=capture_index)
-    probs = _next_token_probs(logits, tokens, eot)[0]          # (T_pad - 1,)
-    device = qks.device
-    layers = torch.tensor([layer for layer, _ in slots], device=device)
-    cols = torch.tensor([slot for _, slot in slots], device=device)
-    sel = qks[layers, :, cols]                            # (n_sel, 1, T_pad, F)
-    mats = legacy_weights_batched(sel, torch.tensor([qk_len], device=device),
-                                  torch.tensor([row_count], device=device),
-                                  sot_len, 1.0, medfilt_width)  # (1, T', F)
-    cost = dtw_cost(-mats)
-    packed = torch.cat([cost.flatten(), probs]).cpu().numpy()
+    probs, cost = known_heads_pass(
+        model.decoder, tokens, encoder_apply(model.encoder, mel), capture_index,
+        slots, qk_lens, row_counts, sot_len, eot)
+    packed = torch.cat([cost.flatten(), probs[0]]).cpu().numpy()
     n_cost = cost.numel()
     jumps = dtw_jumps_batched(packed[:n_cost].reshape(cost.shape),
                               [row_count], [qk_len])[0]
-    return np.concatenate([jumps.astype(np.float32), packed[n_cost:]])
+    return jumps, packed[n_cost:]
 
 
 def dynamic_top_heads(w: torch.Tensor, peaks: Optional[torch.Tensor],
@@ -575,14 +629,11 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
     if not (isinstance(aligner, dict) or aligner in ('new', 'legacy')):
         raise ValueError(f'aligner must be "new"/"legacy" or a dict, got {aligner!r}')
     if token_split is None:
-        words, word_tokens = tokenizer.split_to_word_tokens(
-            list(text_tokens) + [tokenizer.eot])
+        # split with the EOT, which ends as a word of its own: drop it
+        words, word_tokens = (x[:-1] for x in tokenizer.split_to_word_tokens(
+            list(text_tokens) + [tokenizer.eot]))
     else:
         words, word_tokens = token_split
-        words = list(words) + [tokenizer.decode([tokenizer.eot])]
-        word_tokens = list(word_tokens) + [[tokenizer.eot]]
-    word_boundaries = np.pad(np.cumsum([len(t) for t in word_tokens[:-1]]), (1, 0))
-
     sot_len = len(tokenizer.sot_sequence)
     max_qk_len = round(num_samples / N_SAMPLES_PER_TOKEN)
     use_new = aligner != 'legacy'
@@ -659,7 +710,18 @@ def find_alignment(model, dims, tokenizer, text_tokens: List[int],
                                             max_qk_len)).to(qks.device)
                       if extra_weights else weights.mean(dim=0))
             jump_indices = matrix_to_jumps(matrix, m=max_qk_len)
+    return words_from_jumps(words, word_tokens, jump_indices, text_token_probs)
 
+
+def words_from_jumps(words, word_tokens, jump_indices,
+                     text_token_probs) -> List[WordTimingRaw]:
+    """Per-word raw timings (timing.py:687-700): a word starts at the
+    jump frame of its first token and ends at that of the next word's,
+    and its probability is the mean of its tokens'. ``words`` and
+    ``word_tokens`` leave out the EOT; ``jump_indices`` holds a frame for
+    each text token and one for the EOT. ``text_token_probs`` is taken as
+    the caller holds it: a list means in f64, an f32 array in f32."""
+    word_boundaries = np.pad(np.cumsum([len(t) for t in word_tokens]), (1, 0))
     jump_times = jump_indices / TOKENS_PER_SECOND
     start_times = jump_times[word_boundaries[:-1]]
     end_times = jump_times[word_boundaries[1:]]
@@ -827,11 +889,22 @@ def add_word_timestamps(*, segments: List[dict], model, dims, tokenizer,
     alignment = find_alignment(
         model, dims, tokenizer, text_tokens, mel, num_samples,
         token_split=token_split, audio_features=audio_features, **kwargs)
+    attach_words(segments, alignment, seg_indices, segments[0]['seek'],
+                 min_word_dur, prepend_punctuations, append_punctuations)
+
+
+def attach_words(segments: List[dict], alignment: List[WordTimingRaw],
+                 seg_indices: List[int], time_offset: float,
+                 min_word_dur: float, prepend_punctuations: str,
+                 append_punctuations: str):
+    """Append ``alignment``'s words to the ``words`` list of the segment
+    each belongs to, in place (timing.py:940-965): the gap-padding entries
+    taken out (a segment's first word shorter than ``min_word_dur`` starts
+    at the padding before it), punctuation merged into its neighbours, the
+    times offset by ``time_offset`` and rounded to ms; then each segment
+    with words spans them."""
     alt_beginning_alignment = pop_empty_alignment(alignment, seg_indices)
-
     merge_punctuations(alignment, prepend_punctuations, append_punctuations)
-
-    time_offset = segments[0]['seek']
     if len(alignment) != len(seg_indices):
         raise RuntimeError('alignment and segment indices disagree')
     for i, timing in zip(seg_indices, alignment):

@@ -140,14 +140,14 @@ def test_fused_handles_padding_word_tokens(known, monkeypatch):
 
 
 def test_align_routes_through_the_fused_window(known, monkeypatch):
-    from stable_ts_tpu_torch.models.whisper import timing
+    from stable_ts_tpu_torch import alignment
     calls = []
-    fused = timing._fused_align_window
+    fused = alignment._fused_align_window
 
     def counting(*args, **kwargs):
         calls.append(1)
         return fused(*args, **kwargs)
-    monkeypatch.setattr(timing, '_fused_align_window', counting)
+    monkeypatch.setattr(alignment, '_fused_align_window', counting)
     result = known[1].align(_noise(3), ' hello world how are you',
                             language='en', verbose=None)
     assert calls and result.has_words

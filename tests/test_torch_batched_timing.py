@@ -176,8 +176,8 @@ def _logits_with_ties():
 def test_next_token_probs_match_jax():
     from stable_ts_tpu.batched import (_next_token_probs as jax_probs,
                                        _next_token_probs_and_ranks as jax_ranks)
-    from stable_ts_tpu_torch.batched import (_next_token_probs,
-                                             _next_token_probs_and_ranks)
+    from stable_ts_tpu_torch.models.whisper.timing import (
+        _next_token_probs, _next_token_probs_and_ranks)
     logits, tokens = _logits_with_ties()
     lt, tt = torch.from_numpy(logits), torch.from_numpy(tokens)
     _close(_next_token_probs(lt, tt, 30), jax_probs(logits, tokens.astype(np.int32), 30))
@@ -248,9 +248,9 @@ def test_jax_capture_gives_jax_words_on_the_tone_fixture(monkeypatch):
     from stable_ts_tpu_torch import batched
     from stable_ts_tpu_torch.loaders import from_jax
     from stable_ts_tpu_torch.models.whisper import timing
+    from stable_ts_tpu_torch.ops.dtw import dtw_cost
     jax_model = load_jax(alignment_heads=HEADS)
     port_model = from_jax(jax_model, device='cpu')
-    tokenizer = port_model.get_tokenizer(language='en', task='transcribe')
     captures, compared = [], []
     jax_weights = jax_timing.legacy_weights_batched
     jax_finish = jax_batched._finish_word_timing
@@ -269,9 +269,8 @@ def test_jax_capture_gives_jax_words_on_the_tone_fixture(monkeypatch):
             pending['sot_len'], 1.0, 7)
         port_pending = dict(
             pending, tok_probs=torch.from_numpy(np.array(pending['tok_probs'])),
-            cost=batched._dtw_cost_batched(-mats), ready=None, stream=None)
-        batched._finish_word_timing(port_model, tokenizer, port_pending, metas,
-                                    mine, *args)
+            cost=dtw_cost(-mats), ready=None, stream=None)
+        batched._finish_word_timing(port_model, port_pending, metas, mine, *args)
         jax_finish(model, tok, pending, metas, segments, *args)
         compared.append((mine, segments))
 

@@ -147,3 +147,35 @@ def test_copy_equals_the_jax_original(rel):
         got = _mask(ours.read_text()).splitlines()
         want = _mask(theirs.read_text()).splitlines()
     assert got == want
+
+
+# the layers above the model: a module under ops/ or models/ that imports
+# one of them points the arrow up
+ABOVE_THE_MODEL = ('batched', 'transcribe', 'alignment', 'loaders', 'cli')
+
+
+def _imported_modules(path: Path):
+    """Every module an import statement of ``path`` names, relative ones
+    resolved against its package; ``from pkg import name`` also yields
+    ``pkg.name``. Read from the syntax tree: nothing is imported."""
+    package = list(path.relative_to(REPO).parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            parts = package[:len(package) - node.level + 1] if node.level else []
+            base = '.'.join(parts + ([node.module] if node.module else []))
+            yield base
+            yield from (f'{base}.{alias.name}' for alias in node.names)
+
+
+def test_ops_and_models_import_nothing_above_the_model():
+    forbidden = tuple(f'{PORT_PKG.name}.{name}' for name in ABOVE_THE_MODEL)
+    sources = [p for layer in ('ops', 'models')
+               for p in sorted((PORT_PKG / layer).rglob('*.py'))]
+    assert sources
+    wrong = sorted({f'{p.relative_to(REPO)}: {mod}' for p in sources
+                    for mod in _imported_modules(p)
+                    if any(mod == f or mod.startswith(f + '.')
+                           for f in forbidden)})
+    assert not wrong, wrong

@@ -94,23 +94,23 @@ class Recorder:
 class DTWRecorder:
     """Wraps the align family's batched DTW: each call's captured head
     scores and DTW input (this rank's rows of the negated head weights),
-    the gathered costs, the walks' corners and jump frames, on the host."""
+    the gathered costs, the walks' corners and jump frames, on the host.
+    The first two are the weights and cost calls of
+    ``timing.known_heads_pass``, the walks ``align_words``' traceback."""
 
     def __init__(self):
-        from stable_ts_tpu_torch import batched
+        from stable_ts_tpu_torch import alignment
         from stable_ts_tpu_torch.models.whisper import timing
-        from stable_ts_tpu_torch.ops import dtw
         self.calls = []
-        self._mods = (batched, dtw, timing)
-        self._orig = (batched._dtw_cost_batched, dtw.dtw_jumps_batched,
-                      timing.legacy_weights_batched)
-        cost_fn, jumps_fn, weights_fn = self._orig
+        self._orig = (timing.legacy_weights_batched, timing.dtw_cost,
+                      alignment.dtw_jumps_batched)
+        weights_fn, cost_fn, jumps_fn = self._orig
 
         def legacy_weights_batched(qks_sel, *args):
             self.calls.append(dict(qk=qks_sel.float().cpu()))
             return weights_fn(qks_sel, *args)
 
-        def dtw_cost_batched(neg):
+        def dtw_cost(neg):
             self.calls[-1]['x'] = neg.float().cpu()
             return cost_fn(neg)
 
@@ -120,14 +120,15 @@ class DTWRecorder:
                                   m=list(m_cols), jumps=jumps)
             return jumps
 
-        batched._dtw_cost_batched = dtw_cost_batched
-        dtw.dtw_jumps_batched = dtw_jumps_batched
-        timing.legacy_weights_batched = legacy_weights_batched
+        timing.legacy_weights_batched, timing.dtw_cost = legacy_weights_batched, dtw_cost
+        alignment.dtw_jumps_batched = dtw_jumps_batched
 
     def close(self):
-        (batched, dtw, timing), (cost_fn, jumps_fn, weights_fn) = self._mods, self._orig
-        batched._dtw_cost_batched, dtw.dtw_jumps_batched = cost_fn, jumps_fn
-        timing.legacy_weights_batched = weights_fn
+        from stable_ts_tpu_torch import alignment
+        from stable_ts_tpu_torch.models.whisper import timing
+        weights_fn, cost_fn, jumps_fn = self._orig
+        timing.legacy_weights_batched, timing.dtw_cost = weights_fn, cost_fn
+        alignment.dtw_jumps_batched = jumps_fn
 
 
 def build(cfg: dict, device: str, mesh=None):
