@@ -671,8 +671,12 @@ def step_graph_checks(torch, model, results: dict) -> None:
         f'{rec.counters.get("decode.graph_captures", 0)} captures; decode kernels seen '
         f'by the profiler: {seen}')
     layers = dims.n_text_layer
+    # the cross entry's layout follows the shape: several heads a block here
+    wide = 'true' if cross_attn.head_group(rows, 1, dims.n_text_head,
+                                           dims.n_text_state // dims.n_text_head, 1500,
+                                           cross_attn._sm_count(feats.device)) > 1 else 'false'
     want_seen = {'decode_attn_kernel<signed char, 64, false, true>': layers * replays,
-                 'cross_cluster_kernel<signed char, 64, true>': layers * replays}
+                 f'cross_cluster_kernel<signed char, 64, true, {wide}>': layers * replays}
     # a loop that ends on EOT before sample_len queues one step it discards
     steps = graphed[0].shape[1] - 1 + rec.counters.get('decode.steps_discarded', 0)
     if replays != steps or not replays or eager_steps or seen != want_seen:

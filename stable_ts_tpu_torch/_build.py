@@ -67,11 +67,12 @@ _SIGNATURES = {
     # as a device int64 (or null: n_keys then counts the keys), stream
     'self_attn_decode': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _LL, _LL, _LL, _P, _P],
-    # ... as self_attn_decode to the scale batch stride, then the buffers'
-    # addresses as a device array (or null: k, v and the scales are
-    # addresses, not offsets), stream
+    # ... as self_attn_decode to the scale batch stride, then the heads a
+    # block (ops/cross_attn.py:head_group), the buffers' addresses as a
+    # device array (or null: k, v and the scales are addresses, not
+    # offsets), stream
     'cross_attn_decode': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _LL, _LL, _LL, _P, _P],
+                          _LL, _LL, _LL, _I, _P, _P],
     # ... as self_attn_decode to the scale batch stride, then anc, anc row
     # stride, g, stream
     'self_attn_decode_beam': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -54,26 +54,52 @@
 // g = 1 cross entry may likewise read its K/V and scale buffers' addresses
 // from device memory (bases), so the graph reads each group's new buffers.
 //
-// cross_cluster_kernel (both cross entries, every K/V type): a block per
-// (chunk of keys, head, window and chunk of up to GMAX of its g query rows),
-// the CLUSTER key chunks of one head in one thread-block cluster, so a
-// window's 1500 keys keep 8 SMs per head busy where one block per head left
-// 112 of 132 SMs idle. Block c owns keys [c per, (c + 1) per) with per =
-// ceil(s / CLUSTER) and:
-//   1. issues cp.async copies of its chunk's K and V head slices into shared
-//      memory at once (V arrives while K is scored);
-//   2. scores its keys against every query row of the block (q rounded to
-//      bf16), publishes its chunk maximum, cluster.sync();
-//   3. takes the global maximum m of the CLUSTER chunk maxima through
+// cross_cluster_kernel (both cross entries, every K/V type): the CLUSTER
+// key chunks of a window's heads in one thread-block cluster, block c owning
+// keys [c per, (c + 1) per), per = ceil(s / CLUSTER). What bounds it is
+// bytes: a greedy group's step reads 32 windows x 2 x 1500 x 1280 bytes of
+// int8 K/V a layer (123 MB, 37 us at 3.35 TB/s) for 2 multiply-adds a byte.
+// Two layouts of the grid, one kernel (the WIDE template argument), chosen
+// by ops/cross_attn.py:head_group from the shape alone, as the number hg of
+// heads a block reads:
+//   - the row layout (hg = 1; one window, g > 1 query rows a window, and
+//     groups too small to stream): a block per (chunk, head, window and
+//     chunk of up to GMAX of its g query rows); it copies its chunk's K and
+//     V head slices (64 bytes a row at d_head 64) into shared memory at
+//     once with cp.async, so a short call is one round to memory;
+//   - the wide layout (hg > 1, one query row a window): a block per
+//     (chunk, group of hg heads, window). Short blocks of 64-byte slices
+//     came in ~8 waves at 32 windows and read 1.0 TB/s; a wide block
+//     streams whole spans of hg heads of its rows (at hg = n_head the whole
+//     1280-byte rows, one contiguous tile) through a ring of WIDE_STAGES
+//     shared-memory stages, K then V, filled by 1D bulk copies
+//     (cp.async.bulk, an mbarrier a stage) that one producer warp keeps in
+//     flight while 8 consumer warps compute; the producer runs on into V
+//     while the consumers exchange maxima. head_group takes the widest hg
+//     whose grid still gives every SM a block: 32 windows of large-v3 give
+//     256 blocks of whole rows, all resident at once (3 a SM: the ring is
+//     sized for that), where a narrower hg only adds blocks and barriers
+//     for the same bytes. The K/V addresses are computed in the kernel,
+//     from bases read on the device in the graph's entry, so the copies are
+//     1D: a tensor map is built on the host, and passed by value it would
+//     freeze the capture's addresses into the step graph.
+// In both layouts the chunks then:
+//   1. score their keys against every query row (q rounded to bf16), the
+//      products of a key row summed in order over a thread's values (16 of
+//      int8 or int4: the same sums in both layouts), then across the row's
+//      threads by shuffles, times the K scale;
+//   2. publish their maximum per query row and head, cluster barrier;
+//   3. take the global maximum m over the CLUSTER chunks through
 //      distributed shared memory (exact: a max does not depend on order);
-//   4. forms the weights bf16(exp(s - m) vs) with the GLOBAL m, as the TPU
-//      kernel and the twin round them, its chunk sum l_c = sum exp(s - m) and
-//      its unnormalized o_c, publishes both, cluster.sync();
-//   5. block 0 sums o_c and l_c over c = 0 ... CLUSTER - 1 in that fixed
-//      order through distributed shared memory and writes o / l;
-//   6. a last cluster.sync(), so no block exits while its shared memory is
-//      still read.
-// No atomics and no scratch in device memory, one launch: reruns are
+//   4. form the weights bf16(exp(s - m) vs) with the GLOBAL m, as the TPU
+//      kernel and the twin round them, the chunk sum l_c = sum exp(s - m)
+//      and the unnormalized o_c, publish both, cluster barrier;
+//   5. sum o_c and l_c over c = 0 ... CLUSTER - 1 in that fixed order
+//      through distributed shared memory and write o / l (block 0 in the
+//      row layout, block c its eighth of the outputs in the wide one);
+//   6. a last cluster barrier, so no block exits while its shared memory
+//      is still read.
+// No atomics and no scratch in device memory, one launch a call: reruns are
 // bit-identical. A flash-decoding split (a maximum per chunk, rescaled in a
 // second pass) would round the weights at another point than the twin.
 //
@@ -93,6 +119,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -404,13 +431,16 @@ struct Published {
   float o[GMAX][DH];              // the chunk's unnormalized weighted V sum
 };
 
-template <typename T, int DH, bool INDIRECT>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DEC_THREADS)
-cross_cluster_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ ks,
-                     const float* __restrict__ vs, float* __restrict__ out, int n_head,
-                     int n_keys, long long kv_bs, long long kv_rs, long long sc_bs, int g,
-                     const char* const* __restrict__ bases) {
+// The row layout (hg = 1): a block per (key chunk c, head, window and chunk
+// of up to GMAX query rows), its chunk's K and V head slices copied at once.
+template <typename T, int DH>
+__device__ __forceinline__ void cross_rows(const float* __restrict__ q, const T* __restrict__ k,
+                                           const T* __restrict__ v,
+                                           const float* __restrict__ ks,
+                                           const float* __restrict__ vs,
+                                           float* __restrict__ out, int n_head, int n_keys,
+                                           long long kv_bs, long long kv_rs, long long sc_bs,
+                                           int g, uint8_t* dyn) {
   constexpr int RB = Slice<T, DH>::BYTES;
   // scores: 16-byte chunks (8-byte for int4, so a chunk holds 16 values as
   // int8's does and the GMAX sums beside it stay in registers), CPR lanes per
@@ -429,23 +459,11 @@ cross_cluster_kernel(const float* __restrict__ q, const T* __restrict__ k,
                 "d_head must fill whole chunks");
 
   // dynamic: the K chunk, the V chunk, [ng][per] scores, the K and V scales
-  extern __shared__ __align__(16) uint8_t dyn[];
   __shared__ float qs[GMAX][DH];
   __shared__ float wpart[DEC_WARPS][GMAX][DH];
   __shared__ float mx[GMAX];
   __shared__ Published<DH> pub;
 
-  // the buffers' addresses read on the device (a captured graph reads each
-  // group's cross K/V): k and v are then byte offsets into bases[0], ks
-  // and vs into bases[1]
-  if constexpr (INDIRECT) {
-    const char* kvb = bases[0];
-    const char* scb = bases[1];
-    k = reinterpret_cast<const T*>(kvb + reinterpret_cast<size_t>(k));
-    v = reinterpret_cast<const T*>(kvb + reinterpret_cast<size_t>(v));
-    ks = reinterpret_cast<const float*>(scb + reinterpret_cast<size_t>(ks));
-    vs = reinterpret_cast<const float*>(scb + reinterpret_cast<size_t>(vs));
-  }
   cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -637,6 +655,312 @@ cross_cluster_kernel(const float* __restrict__ q, const T* __restrict__ k,
   cluster.sync();
 }
 
+// -- the wide layout (hg > 1): whole spans of the window's rows, streamed -----------
+
+constexpr int WIDE_CONSUMERS = 256;                 // 8 consumer warps
+constexpr int WIDE_THREADS = WIDE_CONSUMERS + 32;   // plus one producer warp
+constexpr int WIDE_STAGES = 3;                      // the ring's stages
+constexpr int WIDE_STAGE_BYTES = 16384;             // bytes of one stage
+// blocks a SM: with this ring, large-v3's 32-window grid (32 clusters of
+// 8) is one wave of resident clusters; at two a SM only 30 fit
+constexpr int WIDE_BLOCKS_PER_SM = 3;
+constexpr int WIDE_VALUES = 16;                     // values of a row a thread takes
+
+// bytes of the WIDE_VALUES values of T a consumer thread takes from a row
+template <typename T>
+struct WideChunk {
+  static constexpr int BYTES = WIDE_VALUES * static_cast<int>(sizeof(T)) / Pack<T>::V;
+};
+
+// The WIDE_VALUES values of T at p (16-byte aligned) as f32; int8 widens by
+// a byte permute and an add a value, as dot16 does.
+template <typename T>
+__device__ __forceinline__ void load_chunk(const uint8_t* p, float (&x)[WIDE_VALUES]) {
+  if constexpr (sizeof(T) == 1 && Pack<T>::V == 1) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) x[4 * i + b] = widen_i8(u, b);
+    }
+  } else {
+    constexpr int B = WideChunk<T>::BYTES;
+    constexpr int L = B < 16 ? B : 16;   // bytes of one load
+#pragma unroll
+    for (int i = 0; i < B / L; ++i)
+      load_vec<L>(reinterpret_cast<const T*>(p + i * L), x + i * VecB<T, L>::N);
+  }
+}
+
+// bytes of the wide layout's dynamic shared memory, and its parts' offsets
+struct WideSmem {
+  int ring, p, ksc, vsc, mx, peak, total, o, bytes;
+  __host__ __device__ WideSmem(int per, int hg, int dh) {
+    ring = 128;                                   // the 2 WIDE_STAGES mbarriers before it
+    p = ring + WIDE_STAGES * WIDE_STAGE_BYTES;    // [hg][per] scores, then weights
+    ksc = p + 4 * hg * per;
+    vsc = ksc + 4 * per;
+    mx = vsc + 4 * per;                           // [hg] the global maxima
+    peak = mx + 4 * hg;                           // published: [hg] the chunk's maxima,
+    total = peak + 4 * hg;                        //   [hg] its exp sums,
+    o = total + 4 * hg;                           //   [hg * dh] its weighted V sums
+    bytes = o + 4 * hg * dh;
+  }
+};
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(WIDE_CONSUMERS) : "memory");
+}
+
+// A block per (key chunk c, group of hg heads, window): one query row (g = 1)
+// against keys [c per, (c + 1) per) of the group's heads. The producer warp
+// streams the chunk's K rows, then its V rows, through the ring, each stage
+// a tile of whole spans of hg * d_head values: one bulk copy a tile where the
+// spans are the whole contiguous rows, else one a row. Consumer thread t
+// takes the WIDE_VALUES values (t % ch) of each span, ch = hg * d_head /
+// WIDE_VALUES, so its query values stay in registers, and rows t / ch, t /
+// ch + rgs, ... of a tile (rgs = WIDE_CONSUMERS / ch row groups).
+template <typename T, int DH>
+__device__ __forceinline__ void cross_wide(const float* __restrict__ q, const T* __restrict__ k,
+                                           const T* __restrict__ v,
+                                           const float* __restrict__ ks,
+                                           const float* __restrict__ vs,
+                                           float* __restrict__ out, int n_head, int n_keys,
+                                           long long kv_bs, long long kv_rs, long long sc_bs,
+                                           int hg, uint8_t* dyn) {
+  constexpr int CB = WideChunk<T>::BYTES;
+  constexpr int CPR = DH / WIDE_VALUES;   // threads of one head's slice of a row
+  static_assert(DH % WIDE_VALUES == 0 && 32 % CPR == 0, "d_head must fill whole chunks");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h0 = blockIdx.y * hg;   // the group's first head
+  const int b = blockIdx.z;         // the window, and its one query row
+  const int d = n_head * DH;
+  const int per = (n_keys + CLUSTER - 1) / CLUSTER;
+  const int j0 = min(c * per, n_keys);
+  const int n = min(per, n_keys - j0);          // this block's keys (may be 0)
+  const int seg = hg * Slice<T, DH>::BYTES;     // bytes of the group's span of a row
+  const int tile = WIDE_STAGE_BYTES / seg;      // keys of a stage
+  const int ntiles = (n + tile - 1) / tile;     // tiles of K, and as many of V
+  const int ch = hg * CPR;                      // consumer threads across a span
+  const int rgs = WIDE_CONSUMERS / ch;          // row groups
+
+  const WideSmem lay(per, hg, DH);
+  const uint32_t bars = hop::smem_u32(dyn);     // full[WIDE_STAGES], then empty[...]
+  uint8_t* ring = dyn + lay.ring;
+  float* p = reinterpret_cast<float*>(dyn + lay.p);
+  float* ksc = reinterpret_cast<float*>(dyn + lay.ksc);
+  float* vsc = reinterpret_cast<float*>(dyn + lay.vsc);
+  float* mx = reinterpret_cast<float*>(dyn + lay.mx);
+  float* peak = reinterpret_cast<float*>(dyn + lay.peak);
+  float* total = reinterpret_cast<float*>(dyn + lay.total);
+  float* po = reinterpret_cast<float*>(dyn + lay.o);
+  if (tid == 0) {
+    for (int st = 0; st < WIDE_STAGES; ++st) {
+      hop::mbar_init(bars + 8 * st, 1);
+      hop::mbar_init(bars + 8 * (WIDE_STAGES + st), WIDE_CONSUMERS / 32);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WIDE_CONSUMERS / 32) {
+    // The producer. Its arrival at the cluster's first barrier comes first,
+    // so the consumers' exchange of maxima never waits on the stream, which
+    // runs on into V meanwhile.
+    asm volatile("barrier.cluster.arrive;" ::: "memory");
+    const bool whole = seg == kv_rs * static_cast<long long>(sizeof(T));
+    const uint8_t* kbase = reinterpret_cast<const uint8_t*>(
+        at(k + b * kv_bs + j0 * kv_rs, h0 * DH));
+    const uint8_t* vbase = reinterpret_cast<const uint8_t*>(
+        at(v + b * kv_bs + j0 * kv_rs, h0 * DH));
+    const long long row = kv_rs * static_cast<long long>(sizeof(T));   // bytes
+    for (int i = 0; i < 2 * ntiles; ++i) {
+      const int st = i % WIDE_STAGES;
+      if (i >= WIDE_STAGES) hop::mbar_wait(bars + 8 * (WIDE_STAGES + st), (i / WIDE_STAGES - 1) & 1);
+      const int t0 = (i % ntiles) * tile;
+      const int cnt = min(tile, n - t0);
+      const uint8_t* src = (i < ntiles ? kbase : vbase) + t0 * row;
+      const uint32_t dst = hop::smem_u32(ring + st * WIDE_STAGE_BYTES);
+      const uint32_t full = bars + 8 * st;
+      if (lane == 0) hop::mbar_arrive_expect(full, cnt * seg);
+      __syncwarp();
+      if (whole) {
+        if (lane == 0) hop::bulk_load(dst, src, cnt * seg, full);
+      } else {
+        for (int r = lane; r < cnt; r += 32) hop::bulk_load(dst + r * seg, src + r * row, seg, full);
+      }
+    }
+    asm volatile("barrier.cluster.wait;" ::: "memory");
+    cluster.sync();   // the consumers' second and third barriers
+    cluster.sync();
+    return;
+  }
+
+  // the chunk's scales, and this thread's query values rounded to bf16
+  for (int r = tid; r < n; r += WIDE_CONSUMERS) {
+    ksc[r] = ks ? ks[b * sc_bs + j0 + r] : 1.f;
+    vsc[r] = vs ? vs[b * sc_bs + j0 + r] : 1.f;
+  }
+  const int col = tid % ch, rg = tid / ch;
+  const bool active = rg < rgs;     // ch * rgs threads take part
+  const int h = col / CPR;          // the head within the group
+  float qv[WIDE_VALUES];
+  {
+    const float* qrow = q + static_cast<long long>(b) * d + h0 * DH + col * WIDE_VALUES;
+#pragma unroll
+    for (int e = 0; e < WIDE_VALUES; ++e) qv[e] = active ? round_bf16(qrow[e]) : 0.f;
+  }
+  consumers_sync();
+
+  // 1. K: each (key, head) score over CPR threads, reduced by shuffles in
+  //    the row layout's order, times the K scale
+#pragma unroll 1
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % WIDE_STAGES;
+    hop::mbar_wait(bars + 8 * st, (i / WIDE_STAGES) & 1);
+    const uint8_t* buf = ring + st * WIDE_STAGE_BYTES;
+    const int t0 = i * tile, cnt = min(tile, n - t0);
+#pragma unroll 2
+    for (int r0 = 0; r0 < cnt; r0 += rgs) {
+      const int r = r0 + rg;
+      const bool live = active && r < cnt;
+      float acc = 0.f;
+      if (live) {
+        float x[WIDE_VALUES];
+        load_chunk<T>(buf + r * seg + col * CB, x);
+#pragma unroll
+        for (int e = 0; e < WIDE_VALUES; ++e) acc = fmaf(qv[e], x[e], acc);
+      }
+#pragma unroll
+      for (int o = CPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL_MASK, acc, o);
+      if (live && col % CPR == 0) p[h * per + t0 + r] = acc * ksc[t0 + r];
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(bars + 8 * (WIDE_STAGES + st));
+  }
+  consumers_sync();
+
+  // 2. each head's maximum over the chunk, a warp a head, published
+  for (int hh = warp; hh < hg; hh += WIDE_CONSUMERS / 32) {
+    float m = -INFINITY;
+    for (int r = lane; r < n; r += 32) m = fmaxf(m, p[hh * per + r]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
+    if (lane == 0) peak[hh] = m;
+  }
+  cluster.sync();
+
+  // 3. the global maximum of each head over the cluster's chunks (exact)
+  for (int hh = tid; hh < hg; hh += WIDE_CONSUMERS) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int cc = 0; cc < CLUSTER; ++cc) m = fmaxf(m, cluster.map_shared_rank(peak, cc)[hh]);
+    mx[hh] = m;
+  }
+  consumers_sync();
+
+  // 4. the weights bf16(exp(s - m) vs) with the GLOBAL m, and each head's
+  //    exp sum, a warp a head
+  for (int hh = warp; hh < hg; hh += WIDE_CONSUMERS / 32) {
+    const float m = mx[hh];
+    float l = 0.f;
+    for (int r = lane; r < n; r += 32) {
+      const float e = expf(p[hh * per + r] - m);
+      l += e;
+      p[hh * per + r] = round_bf16(e * vsc[r]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(FULL_MASK, l, o);
+    if (lane == 0) total[hh] = l;
+  }
+  consumers_sync();
+
+  // 5. V: the weighted sum of the chunk's rows, WIDE_VALUES outputs a thread
+  float acc[WIDE_VALUES];
+#pragma unroll
+  for (int e = 0; e < WIDE_VALUES; ++e) acc[e] = 0.f;
+#pragma unroll 1
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = (ntiles + i) % WIDE_STAGES;
+    hop::mbar_wait(bars + 8 * st, ((ntiles + i) / WIDE_STAGES) & 1);
+    const uint8_t* buf = ring + st * WIDE_STAGE_BYTES;
+    const int t0 = i * tile, cnt = min(tile, n - t0);
+    if (active) {
+      for (int r = rg; r < cnt; r += rgs) {
+        const float w = p[h * per + t0 + r];
+        float x[WIDE_VALUES];
+        load_chunk<T>(buf + r * seg + col * CB, x);
+#pragma unroll
+        for (int e = 0; e < WIDE_VALUES; ++e) acc[e] = fmaf(w, x[e], acc[e]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(bars + 8 * (WIDE_STAGES + st));
+  }
+  // the row groups in order, through the ring (every stage is spent)
+  consumers_sync();
+  float* red = reinterpret_cast<float*>(ring);   // [rgs][hg * DH]
+  const int span = hg * DH;
+  if (active) {
+#pragma unroll
+    for (int e = 0; e < WIDE_VALUES; ++e) red[rg * span + col * WIDE_VALUES + e] = acc[e];
+  }
+  consumers_sync();
+  for (int i = tid; i < span; i += WIDE_CONSUMERS) {
+    float o = 0.f;
+    for (int gi = 0; gi < rgs; ++gi) o += red[gi * span + i];
+    po[i] = o;
+  }
+  cluster.sync();
+
+  // 6. block c combines its eighth of the outputs over the chunks in order
+  //    c = 0 ... CLUSTER - 1: no atomics, reruns are bit-identical
+  const int share = (span + CLUSTER - 1) / CLUSTER;
+  const int end = min(span, (c + 1) * share);
+  for (int i = c * share + tid; i < end; i += WIDE_CONSUMERS) {
+    const int hh = i / DH;
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CLUSTER; ++cc) {
+      l += cluster.map_shared_rank(total, cc)[hh];
+      o += cluster.map_shared_rank(po, cc)[i];
+    }
+    out[static_cast<long long>(b) * d + h0 * DH + i] = o / l;
+  }
+  // 7. no block leaves while another may still read its shared memory
+  cluster.sync();
+}
+
+template <typename T, int DH, bool INDIRECT, bool WIDE>
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+__launch_bounds__(WIDE ? WIDE_THREADS : DEC_THREADS, WIDE ? WIDE_BLOCKS_PER_SM : 1)
+cross_cluster_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs, float* __restrict__ out, int n_head,
+                     int n_keys, long long kv_bs, long long kv_rs, long long sc_bs, int g,
+                     int hg, const char* const* __restrict__ bases) {
+  extern __shared__ __align__(128) uint8_t dyn[];
+  // the buffers' addresses read on the device (a captured graph reads each
+  // group's cross K/V): k and v are then byte offsets into bases[0], ks
+  // and vs into bases[1]
+  if constexpr (INDIRECT) {
+    const char* kvb = bases[0];
+    const char* scb = bases[1];
+    k = reinterpret_cast<const T*>(kvb + reinterpret_cast<size_t>(k));
+    v = reinterpret_cast<const T*>(kvb + reinterpret_cast<size_t>(v));
+    ks = reinterpret_cast<const float*>(scb + reinterpret_cast<size_t>(ks));
+    vs = reinterpret_cast<const float*>(scb + reinterpret_cast<size_t>(vs));
+  }
+  if constexpr (WIDE)
+    cross_wide<T, DH>(q, k, v, ks, vs, out, n_head, n_keys, kv_bs, kv_rs, sc_bs, hg, dyn);
+  else
+    cross_rows<T, DH>(q, k, v, ks, vs, out, n_head, n_keys, kv_bs, kv_rs, sc_bs, g, dyn);
+}
+
 // Arguments of every entry, passed through to the launches.
 struct DecodeArgs {
   const void *q, *k, *v, *ks, *vs;
@@ -649,6 +973,7 @@ struct DecodeArgs {
   cudaStream_t stream;
   const long long* pos_dev;   // the self entry's position on the device, or null
   const char* const* bases;   // the g = 1 cross entry's buffer addresses, or null
+  int hg = 1;                 // the g = 1 cross entry's heads a block
 };
 
 template <typename T, int DH, bool BEAM, bool DEV_POS>
@@ -698,19 +1023,37 @@ int launch_rows(const DecodeArgs& a) {
 template <typename T, int DH, bool INDIRECT>
 int launch_cross_dh(const DecodeArgs& a) {
   const int per = (a.n_keys + CLUSTER - 1) / CLUSTER;
+  if (a.hg > 1) {
+    // the wide layout: one query row a window, hg heads a block
+    const int seg = a.hg * Slice<T, DH>::BYTES;
+    if (a.g != 1 || a.n_head % a.hg || seg > WIDE_STAGE_BYTES ||
+        a.hg * (DH / WIDE_VALUES) > WIDE_CONSUMERS)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = WideSmem(per, a.hg, DH).bytes;
+    auto kernel = cross_cluster_kernel<T, DH, INDIRECT, true>;
+    const cudaError_t e = allow_dynamic_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(CLUSTER, a.n_head / a.hg, a.batch);
+    kernel<<<grid, WIDE_THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const float*>(a.ks),
+        static_cast<const float*>(a.vs), static_cast<float*>(a.out), a.n_head,
+        a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs, 1, a.hg, a.bases);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int ng = a.g < GMAX ? a.g : GMAX;
   // the K and V chunks, ng rows of scores, the K and V scales
   const size_t smem =
       static_cast<size_t>(per) * (2 * Slice<T, DH>::BYTES + (ng + 2) * sizeof(float));
-  const cudaError_t e = allow_dynamic_smem(cross_cluster_kernel<T, DH, INDIRECT>, smem);
+  const cudaError_t e = allow_dynamic_smem(cross_cluster_kernel<T, DH, INDIRECT, false>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   // grid x is the cluster: CLUSTER key chunks of one head
   const dim3 grid(CLUSTER, a.n_head, a.batch * ((a.g + GMAX - 1) / GMAX));
-  cross_cluster_kernel<T, DH, INDIRECT><<<grid, DEC_THREADS, smem, a.stream>>>(
+  cross_cluster_kernel<T, DH, INDIRECT, false><<<grid, DEC_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<float*>(a.out), a.n_head,
-      a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs, a.g, a.bases);
+      a.n_keys, a.kv_bs, a.kv_rs, a.sc_bs, a.g, 1, a.bases);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -775,18 +1118,19 @@ extern "C" int self_attn_decode(const void* q, const void* k, const void* v,
                                         static_cast<const long long*>(pos_dev)});
 }
 
-// The g = 1 cross entry's bases, when not null, is a device array of two
+// The g = 1 cross entry reads hg heads a block (a divisor of n_head; 1: the
+// row layout). Its bases, when not null, is a device array of two
 // addresses, the K/V buffer's and the scales': k and v are then byte
 // offsets into the first, ks and vs into the second.
 extern "C" int cross_attn_decode(const void* q, const void* k, const void* v,
                                  const void* ks, const void* vs, void* out,
                                  int dtype, int batch, int n_head, int d_head,
                                  int n_keys, long long kv_bs, long long kv_rs,
-                                 long long sc_bs, const void* bases, void* stream) {
+                                 long long sc_bs, int hg, const void* bases, void* stream) {
   return dispatch<Entry::kCross>(dtype, {q, k, v, ks, vs, out, batch, n_head, d_head,
                                          n_keys, kv_bs, kv_rs, sc_bs, nullptr, 0, 1,
                                          static_cast<cudaStream_t>(stream), nullptr,
-                                         static_cast<const char* const*>(bases)});
+                                         static_cast<const char* const*>(bases), hg});
 }
 
 // Beam rows: batch = rows (a multiple of g); key j of row r is read from

@@ -1,7 +1,8 @@
 // Hopper building blocks of the bf16 flash kernels (flash_attn.cu,
 // flash_attn_bwd.cu), the bf16 vocab projection (vocab_proj.cu), the
-// greedy logit epilogue (logit_epilogue.cu) and the weight-only matmul
-// (woq_matmul.cu): TMA tile loads completing on
+// greedy logit epilogue (logit_epilogue.cu), the weight-only matmul
+// (woq_matmul.cu) and the cross decode's streamed layout (decode_attn.cu,
+// 1D bulk copies only): TMA tile loads completing on
 // mbarriers, wgmma on 128-byte (d_head 64) or 64-byte (d_head 32) swizzled
 // shared-memory tiles or with A in registers, and the host's tensor maps.
 //
@@ -95,6 +96,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) of global memory at src into shared memory at
+// dst, both 16-byte aligned: a 1D bulk copy, its address computed in the
+// kernel (no tensor map); its bytes complete on ``bar``
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -6,16 +6,26 @@ all its branches: g = 1, one query row per window, and q_per_kv = g > 1,
 the g beams or best_of candidates of a window reading that window's K/V
 (rows b*g ... b*g + g - 1 read window b); float, int8 or (``bits=4``)
 packed int4 K/V. Each query attends keys j < s of the window's precomputed
-cross-attention K/V, the largest stream a decode step reads. Both entries
-run one kernel: the keys of a head are split in 8 chunks, one block each,
-the 8 blocks of a head one thread-block cluster; each block copies its
-chunk's K and V head slices into shared memory once, dequantizes in
-registers with the per-position scales and applies each row to all query
-rows of its window (up to 8 per block), so the stream is read once per
-window, not per row. The chunks agree on the global maximum through
-distributed shared memory before any weight is rounded, and the first
-block sums the chunks' partial outputs in a fixed order (no atomics:
-reruns are bit-identical). At most ``self_attn.MAX_KEYS_CROSS`` keys.
+cross-attention K/V, the largest stream a decode step reads: bytes bound
+it. Both entries run one kernel: a window's keys are split in 8 chunks,
+one block each, the 8 blocks one thread-block cluster. The grid's layout
+follows the shape (:func:`head_group`, the heads a block reads, passed to
+the kernel): with one query row a window over enough windows, a block
+takes a group of heads and streams whole spans of its chunk's K rows,
+then V rows, through a ring of shared-memory stages filled by 1D bulk
+copies (the wide layout: at 32 windows of large-v3, whole 1280-byte rows,
+256 blocks resident at once); at one window, with g > 1 rows a window, or
+where a block would stream too few values, a block takes one head and
+copies its chunk's K and V head slices at once (the row layout), applying
+each row to all query rows of its window (up to 8 per block), so the
+stream is read once per window, not per row. Either way each row is
+dequantized in registers with the per-position scales, the chunks agree
+on the global maximum through distributed shared memory before any
+weight is rounded, and the partial outputs are summed over the chunks in
+a fixed order (no atomics: reruns are bit-identical). A call is one
+launch, counted as ``cross_attn_decode[_int4]`` and, in the wide layout,
+also as ``cross_attn_decode[_int4]_wide``. At most
+``self_attn.MAX_KEYS_CROSS`` keys.
 
 As the TPU kernel does for its MXU (cross_attn.py:107,118-120,129), the
 query and the softmax weights (times the V scales) are rounded to bf16
@@ -29,9 +39,49 @@ nibble and dim 2i + 1 in the high nibble (:func:`pack_int4`); the values
 and scales are the TPU's, the nibble order is not (JAX packs dims r and
 r + d/2 together, which suits its transposed tiles).
 """
+import functools
+
 import torch
 
-from .self_attn import _decode_cuda
+from .self_attn import WIDE_SPAN, _decode_cuda
+
+CLUSTER = 8   # key chunks of a head, a block each: decode_attn.cu's cluster
+# values a block of the wide layout streams, below which its fixed costs (a
+# ring to fill, three cluster barriers, the combine) outweigh the stream:
+# on an H100 the row layout is faster at 2 and 3 windows of large-v3 (24,064
+# values a block at 2 heads), the wide one from 4 (48,128 at 4 heads)
+WIDE_MIN_VALUES = 32768
+
+
+def head_group(windows: int, g: int, n_head: int, d_head: int, keys: int,
+               sms: int) -> int:
+    """The heads a block of the cross kernel reads together. The widest
+    divisor hg of n_head whose grid, CLUSTER key chunks x n_head / hg head
+    groups x ``windows``, still gives each of the card's ``sms`` SMs a
+    block, so that a block streams whole spans of hg heads of its window's
+    rows. 1 (a head a block: the row layout) where no hg > 1 does, where
+    that block's keys x hg heads hold fewer than WIDE_MIN_VALUES values,
+    and for g > 1 query rows a window, whose GMAX rows x hg heads of sums
+    would not stay in registers. A span holds at most WIDE_SPAN values."""
+    if g != 1:
+        return 1
+    per = -(-keys // CLUSTER)
+    for hg in range(n_head, 1, -1):
+        if (n_head % hg == 0 and hg * d_head <= WIDE_SPAN
+                and CLUSTER * (n_head // hg) * windows >= sms):
+            return hg if per * hg * d_head >= WIDE_MIN_VALUES else 1
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _head_group_on(q, kv, s: int, n_head: int) -> int:
+    """:func:`head_group` of a g = 1 call on q's card."""
+    return head_group(kv.shape[1], 1, n_head, q.shape[1] // n_head, s,
+                      _sm_count(q.device))
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -91,7 +141,7 @@ def cross_attn_decode(q, kv, sc, layer: int, s: int, n_head: int,
         return _decode_cuda('cross_attn_decode_group', q, k, v, ks, vs, s,
                             n_head, g=q_per_kv, packed=packed)
     return _decode_cuda('cross_attn_decode', q, k, v, ks, vs, s, n_head,
-                        packed=packed)
+                        packed=packed, hg=_head_group_on(q, kv, s, n_head))
 
 
 def cross_attn_decode_indirect(q, kv, sc, bases, layer: int, s: int,
@@ -110,7 +160,8 @@ def cross_attn_decode_indirect(q, kv, sc, bases, layer: int, s: int,
                          'int64 addresses')
     return _decode_cuda('cross_attn_decode', q, kv[layer, :, 0], kv[layer, :, 1],
                         sc[layer, :, 0], sc[layer, :, 1], s, n_head, packed=packed,
-                        bases=(bases, kv.data_ptr(), sc.data_ptr()))
+                        bases=(bases, kv.data_ptr(), sc.data_ptr()),
+                        hg=_head_group_on(q, kv, s, n_head))
 
 
 def _packed(q, kv, bits: int) -> bool:

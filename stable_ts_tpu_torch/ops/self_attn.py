@@ -28,6 +28,9 @@ MAX_KEYS = 8192         # keys the self and beam entries take (pos < MAX_KEYS)
 # the cross entries hold their key chunk's K and V head slices and 8 query
 # rows' scores in shared memory: twice Whisper's 1500 frames, f32 included
 MAX_KEYS_CROSS = 3072
+# the cross entry's wide layout gives each of its 256 consumer threads 16
+# values of a row's span of hg heads: hg * d_head at most this
+WIDE_SPAN = 4096
 
 
 def _by_ancestor(t, anc, g: int, n: int):
@@ -103,7 +106,7 @@ def self_attn_decode(q, k, v, k_scale, v_scale, pos, n_head: int,
 
 
 def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
-                 anc=None, packed=False, pos_dev=None, bases=None):
+                 anc=None, packed=False, pos_dev=None, bases=None, hg=1):
     """Launch one of decode_attn.cu's entries. k/v: (B, S, d) views whose
     rows are contiguous (batch and row strides are passed through), or with
     ``packed`` (the cross entries only) (B, S, d / 2) int8 bytes of packed
@@ -115,7 +118,9 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
     ``bases``, (a (2,) int64 device tensor, the address of the buffer k
     and v lie in, the address of the scales' buffer), or None: the kernel
     then reads k, v and the scales at the same offsets in the two buffers
-    whose addresses the tensor holds when the kernel runs."""
+    whose addresses the tensor holds when the kernel runs, and ``hg``, the
+    heads a block reads together (a divisor of n_head; 1: the row layout),
+    counted also as ``<entry>[_int4]_wide`` when above 1."""
     rows, d = q.shape
     dh = d // n_head
     group = entry == 'cross_attn_decode_group'
@@ -138,6 +143,11 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
         raise ValueError(f'{entry} holds at most {limit} keys, got {n_keys}')
     if g < 1 or (anc is not None and b % g):
         raise ValueError(f'{entry}: g={g} must divide the {b} cache rows')
+    if hg != 1 and (entry != 'cross_attn_decode' or hg < 1 or n_head % hg
+                    or hg * dh > WIDE_SPAN):
+        raise ValueError(f'{entry}: hg={hg} must be 1, or with one query row a '
+                         f'window a divisor of the {n_head} heads spanning at '
+                         f'most {WIDE_SPAN} values')
     es = k.element_size()
     if (k.stride(2) != 1 or k.data_ptr() % 16 or v.data_ptr() % 16
             or (k.stride(0) * es) % 16 or (k.stride(1) * es) % 16):
@@ -164,7 +174,7 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
     elif entry == 'self_attn_decode':
         extra = (pos_dev.data_ptr() if pos_dev is not None else None,)
     elif entry == 'cross_attn_decode':
-        extra = (bases[0].data_ptr() if bases is not None else None,)
+        extra = (hg, bases[0].data_ptr() if bases is not None else None)
     ptrs = [k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None]
@@ -179,5 +189,8 @@ def _decode_cuda(entry, q, k, v, k_scale, v_scale, n_keys, n_head, g=1,
         out.data_ptr(), _build.DTYPE_I4 if packed else _build.dtype_code(k.dtype),
         b, n_head, dh, n_keys, k.stride(0), k.stride(1), sc_bs, *extra,
         _build.stream_ptr(q)), entry)
-    _build.launches[entry + ('_int4' if packed else '')] += 1
+    name = entry + ('_int4' if packed else '')
+    _build.launches[name] += 1
+    if hg > 1:
+        _build.launches[name + '_wide'] += 1
     return out

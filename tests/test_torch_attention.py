@@ -242,3 +242,42 @@ def test_wrappers_refuse_other_devices():
         flash_attention(x, x, x, H, 1.0)
     with pytest.raises(ValueError, match='unsupported device'):
         dtw_cost(torch.empty((1, 3, 5), device='meta'))
+
+
+@pytest.mark.parametrize('windows,g,n_head,d_head,keys,want', [
+    (32, 1, 20, 64, 1500, 20),    # large-v3 and turbo: a full greedy group
+    (13, 1, 20, 64, 1500, 10),    # their last group of a file
+    (8, 1, 20, 64, 1500, 5),      # the batched 8-row shape (int8 or int4)
+    (4, 1, 20, 64, 1500, 4),      # the smallest group that streams
+    (3, 1, 20, 64, 1500, 1),      # 2 heads a block: too few values to stream
+    (2, 1, 20, 64, 1500, 1),      # int4, 2 rows
+    (1, 1, 20, 64, 1500, 1),      # one row: sequential transcribe, locate
+    (1, 1, 20, 64, 300, 1),
+    (1, 5, 20, 64, 1500, 1),      # the group entry: beams or best_of
+    (32, 5, 20, 64, 1500, 1),
+    (32, 1, 4, 32, 3000, 4),      # d_head 32
+    (32, 1, 4, 32, 300, 1),
+    (32, 1, H, DH, 1500, 1),      # the tiny test model's heads: too few values
+    (1, 1, H, DH, 1500, 1),
+    (32, 1, 20, 64, 5, 1),        # fewer keys than key chunks
+], ids=['v3-32', 'v3-13', 'v3-8', 'v3-4', 'v3-3', 'int4-2', 'one-row', 'locate',
+        'g5', 'g5x32', 'dh32-32', 'dh32-few-keys', 'tiny-32', 'tiny-1', 'keys-5'])
+def test_cross_head_group_chooser(windows, g, n_head, d_head, keys, want):
+    """The cross kernel's heads a block, on each caller's shapes (an H100's
+    132 SMs): the widest divisor of n_head whose grid still gives every SM a
+    block, 1 at one window, for g > 1 and where a block would stream too
+    few values. The wrapper refuses any other head group than 1 or a
+    divisor of n_head, before it reaches the card."""
+    from stable_ts_tpu_torch.ops.cross_attn import head_group
+    from stable_ts_tpu_torch.ops.self_attn import _decode_cuda
+    hg = head_group(windows, g, n_head, d_head, keys, 132)
+    assert hg == want and n_head % hg == 0
+    d = n_head * d_head
+    k = torch.zeros((windows, keys, d), dtype=torch.int8)
+    ks = torch.ones((windows, keys))
+    q = torch.zeros((windows, d))
+    bad = next(x for x in range(2, n_head + 2) if n_head % x)
+    with pytest.raises(ValueError, match='divisor'):
+        _decode_cuda('cross_attn_decode', q, k, k, ks, ks, keys, n_head, hg=bad)
+    with pytest.raises(ValueError, match='divisor'):
+        _decode_cuda('cross_attn_decode_group', q, k, k, ks, ks, keys, n_head, hg=2)

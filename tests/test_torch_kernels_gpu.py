@@ -664,6 +664,99 @@ def test_cross_kernel_raises_beyond_its_key_limit(cuda):
         cross_attn_decode(_randn(cuda, 1, d), kv, sc, 0, MAX_KEYS_CROSS + 1, n_head)
 
 
+def _wide_count(packed=False):
+    return _build.launches['cross_attn_decode' + ('_int4' if packed else '') + '_wide']
+
+
+def _chosen(windows, s, n_head=20, d_head=64):
+    from stable_ts_tpu_torch.ops.cross_attn import _sm_count, head_group
+    return head_group(windows, 1, n_head, d_head, s, _sm_count(torch.device('cuda')))
+
+
+@pytest.mark.parametrize('kind', ['int8', 'bf16'])
+@pytest.mark.parametrize('rows', [32, 13])
+@pytest.mark.parametrize('indirect', [False, True], ids=['direct', 'indirect'])
+def test_cross_wide_layout_matches_twin(cuda, kind, rows, indirect):
+    """The g = 1 entry at the greedy group's shapes (32 windows, and a last
+    group of 13), where the chooser gives each block several heads of its
+    window's rows (the wide layout): within the row layout's tolerance of
+    the twin, reruns equal bit for bit, and one ``_wide`` count a call."""
+    from stable_ts_tpu_torch.ops.cross_attn import (cross_attn_decode,
+                                                    cross_attn_decode_indirect,
+                                                    cross_attn_decode_ref)
+    d, n_head, s = 1280, 20, 1500
+    kv, vals, sc, _ = _cross_inputs(cuda, kind, 2, rows, s, d)
+    q = _randn(cuda, rows, d) * 0.125
+    if indirect:
+        layout_kv, _, layout_sc, _ = _cross_inputs(cuda, kind, 2, rows, s, d)
+        bases = torch.tensor([kv.data_ptr(), sc.data_ptr()], device='cuda')
+
+        def run():
+            return cross_attn_decode_indirect(q, layout_kv, layout_sc, bases, 1, s, n_head)
+    else:
+        def run():
+            return cross_attn_decode(q, kv, sc, 1, s, n_head)
+    assert _chosen(rows, s) > 1
+    before = _wide_count()
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert _wide_count() == before + 2
+    assert torch.equal(got, again)
+    ref = cross_attn_decode_ref(q, vals[1, :, 0], vals[1, :, 1], sc[1, :, 0], sc[1, :, 1],
+                                s, n_head)
+    assert _rel(got, ref) <= 1e-3
+
+
+@pytest.mark.parametrize('kind', ['int8', 'int4'])
+def test_cross_wide_count_follows_the_chooser(cuda, kind):
+    """``_build.launches['cross_attn_decode[_int4]_wide']`` rises exactly
+    on the calls where the chooser gives a block more than one head; every
+    call, wide or not, is one ``cross_attn_decode[_int4]`` launch."""
+    from stable_ts_tpu_torch.ops.cross_attn import cross_attn_decode, cross_attn_decode_ref
+    d, n_head, s = 1280, 20, 1500
+    packed = kind == 'int4'
+    name = 'cross_attn_decode' + ('_int4' if packed else '')
+    for windows in (1, 2, 8, 13, 32):
+        kv, vals, sc, bits = _cross_inputs(cuda, kind, 1, windows, s, d)
+        q = _randn(cuda, windows, d) * 0.125
+        before, wide = _build.launches[name], _wide_count(packed)
+        got = cross_attn_decode(q, kv, sc, 0, s, n_head, bits=bits)
+        torch.cuda.synchronize()
+        assert _build.launches[name] == before + 1
+        assert _wide_count(packed) == wide + (_chosen(windows, s) > 1), windows
+        ref = cross_attn_decode_ref(q, vals[0, :, 0], vals[0, :, 1], sc[0, :, 0],
+                                    sc[0, :, 1], s, n_head)
+        assert _rel(got, ref) <= 1e-3, windows
+
+
+def test_cross_wide_graph_reads_a_second_buffer(cuda):
+    """A CUDA graph that captured the indirect entry at 32 rows (the wide
+    layout), replayed after ``bases`` is pointed at a second K/V buffer,
+    gives the eager result on that buffer, bit for bit."""
+    from stable_ts_tpu_torch.ops.cross_attn import (cross_attn_decode,
+                                                    cross_attn_decode_indirect)
+    d, n_head, s, rows = 1280, 20, 1500, 32
+    first, _, first_sc, _ = _cross_inputs(cuda, 'int8', 2, rows, s, d)
+    second, _, second_sc, _ = _cross_inputs(cuda, 'int8', 2, rows, s, d)
+    q = _randn(cuda, rows, d) * 0.125
+    bases = torch.tensor([first.data_ptr(), first_sc.data_ptr()], device='cuda')
+    assert _chosen(rows, s) > 1
+    cross_attn_decode_indirect(q, first, first_sc, bases, 1, s, n_head)   # warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cross_attn_decode_indirect(q, first, first_sc, bases, 1, s, n_head)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, cross_attn_decode(q, first, first_sc, 1, s, n_head))
+    bases.copy_(torch.tensor([second.data_ptr(), second_sc.data_ptr()], device='cuda'))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = cross_attn_decode(q, second, second_sc, 1, s, n_head)
+    assert not torch.equal(want, cross_attn_decode(q, first, first_sc, 1, s, n_head))
+    assert torch.equal(out, want)
+
+
 # -- the greedy step's CUDA graph (models/whisper/step_graph.py) ---------------------
 
 @pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16, torch.float32])

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Device times of stable_ts_tpu_torch's decode-attention entries (self,
 its position given on the host and, where the tree can read it there, on
-the device; beam; cross), vocab projection, weight-only matmul, greedy
+the device; beam; cross, at one window and at the batched groups' 8 and
+32 windows, the 32 also through addresses read on the device, as the
+greedy step's graph calls it), vocab projection, weight-only matmul, greedy
 logit epilogue (beside torch.mm of the same product, its yardstick) and
 DTW cost at Whisper large-v3's shapes, and of an empty launch where the
 tree has one, for the package found under ROOT (default: this checkout).
@@ -15,7 +17,9 @@ A. Each process builds ROOT's kernels and prints one JSON line: the card's
 name and power limit, then for each entry its device time alone (the
 profiler's kernel durations, ``chip_smoke.device_ms``) and its CUDA-event
 time (``chip_smoke.cuda_ms``, which also reads the wrapper's host time),
-both in ms per call. Needs one CUDA GPU.
+both in ms per call; each cross entry also gives the bytes it must read
+and write (``perfbench/roofline.py``'s count) over its device time, in
+TB/s and as a share of the H100's 3.35 TB/s. Needs one CUDA GPU.
 """
 import json
 import os
@@ -23,6 +27,7 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HBM_TB_S = 3.35   # H100 SXM data sheet
 
 
 def time_root(root: str) -> dict:
@@ -52,16 +57,48 @@ def time_root(root: str) -> dict:
 
     layers, d, h, s = 32, 1280, 20, 1500
     times = {}
+
+    def cross(name, fn, kv, rows, iters):
+        """The entry's times, and the bytes it must move (K/V rows and
+        their scales, query and output) over its device time."""
+        times[name] = both(fn, iters)
+        nbytes = (2 * kv.shape[1] * s * (kv.shape[-1] * kv.element_size() + 4)
+                  + 2 * rows * d * 4)
+        tb_s = nbytes / times[name]['device_ms'] / 1e9
+        times[name].update(bytes=nbytes, tb_s=round(tb_s, 3),
+                           hbm_share=round(tb_s / HBM_TB_S, 3))
     kv8, sc8 = quantize_rows(randn(layers, 1, 2, s, d))
     vals4, sc4 = quantize_rows(randn(layers, 1, 2, s, d), bits=4)
     kv4 = cross_attn.pack_int4(vals4)
     for g in (1, 5):
         q = randn(g, d) * (d // h) ** -0.5
-        times[f'cross int8 g={g}'] = both(
-            lambda: cross_attn.cross_attn_decode(q, kv8, sc8, 7, s, h, q_per_kv=g), 200)
-        times[f'cross int4 g={g}'] = both(
-            lambda: cross_attn.cross_attn_decode(q, kv4, sc4, 7, s, h, q_per_kv=g, bits=4),
-            200)
+        cross(f'cross int8 g={g}',
+              lambda: cross_attn.cross_attn_decode(q, kv8, sc8, 7, s, h, q_per_kv=g), kv8, g,
+              200)
+        cross(f'cross int4 g={g}',
+              lambda: cross_attn.cross_attn_decode(q, kv4, sc4, 7, s, h, q_per_kv=g, bits=4),
+              kv4, g, 200)
+    bf16_kv = randn(2, 1, 2, s, d).to(torch.bfloat16)
+    ones = torch.ones((2, 1, 2, s), device='cuda')
+    q = randn(1, d) * (d // h) ** -0.5
+    cross('cross bf16 g=1 (locate)',
+          lambda: cross_attn.cross_attn_decode(q, bf16_kv, ones, 1, s, h), bf16_kv, 1, 200)
+    del kv8, sc8, kv4, vals4, sc4, bf16_kv
+    # the batched groups: one query row a window over 8 and 32 windows, the
+    # 32 also as the step graph calls it (K/V and scale addresses on the device)
+    for windows in (8, 32):
+        kvw, scw = quantize_rows(randn(2, windows, 2, s, d))
+        q = randn(windows, d) * (d // h) ** -0.5
+        cross(f'cross int8 {windows} rows',
+              lambda: cross_attn.cross_attn_decode(q, kvw, scw, 1, s, h), kvw, windows, 100)
+        if windows == 32:
+            layout_kv, layout_sc = torch.empty_like(kvw), torch.empty_like(scw)
+            bases = torch.tensor([kvw.data_ptr(), scw.data_ptr()], device='cuda')
+            cross(f'cross int8 {windows} rows, addresses on the device',
+                  lambda: cross_attn.cross_attn_decode_indirect(
+                      q, layout_kv, layout_sc, bases, 1, s, h), kvw, windows, 100)
+            del layout_kv, layout_sc
+        del kvw, scw
     # the self and beam entries on one layer of an int8 row cache, pos 200
     pos, ctx = 200, 256
     for rows, g in ((1, 1), (5, 5)):
