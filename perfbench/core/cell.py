@@ -4,6 +4,8 @@ import json
 from pathlib import Path
 from typing import Callable
 
+from .. import roofline
+
 HERE = Path(__file__).resolve().parents[1]          # perfbench/
 
 
@@ -27,11 +29,26 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def _joined(shared: dict, own: dict, what: str) -> dict:
+    """``shared`` (``roofline.py``'s) with a family's ``own`` added; a key
+    in both raises."""
+    both = set(shared) & set(own)
+    if both:
+        raise KeyError(f'the family\'s {what} repeat roofline.py\'s: {sorted(both)}')
+    return {**shared, **own}
+
+
 class Cell:
     """A workload of BENCHMARK.json with its configuration, model family,
     traffic mix, traffic kind, metric readers and limits. A configuration
     that names no family, or one with no module, raises here, before any
-    device work."""
+    device work, as does a family rule or kernel list that ``roofline.py``
+    already has a key for.
+
+    ``rules`` and ``kernels``: ``roofline.RULES`` and ``roofline.KERNELS``
+    joined with the family's own ``RULES`` and ``KERNELS`` (the ``ops/``
+    wrappers only its model calls), which the traced run wraps and matches.
+    """
 
     def __init__(self, bench: dict, workload: str, root: Path):
         cells = {w['name']: w for w in bench['workloads']}
@@ -48,6 +65,9 @@ class Cell:
         self.family = _load_module(find('families', family),
                                    f'perfbench_family_{family}')
         self.family.check_config(self.config)
+        self.rules = _joined(roofline.RULES, getattr(self.family, 'RULES', {}), 'RULES')
+        self.kernels = _joined(roofline.KERNELS, getattr(self.family, 'KERNELS', {}),
+                               'KERNELS')
         self.traffic = load_json(find('traffic', self.entry['traffic'], '.json'))
         self.kind = _load_module(find('generators', self.traffic['kind']),
                                  f"perfbench_kind_{self.traffic['kind']}")

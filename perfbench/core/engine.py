@@ -120,7 +120,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     tracer = recorder = recording = None
     if trace:
         tracer = Tracer(cell.traffic.get('profile_seconds', 2.0),
-                        counters=lambda: recording.counters if recording else {})
+                        counters=lambda: recording.counters if recording else {},
+                        rules=cell.rules, kernels=cell.kernels)
         tracer.ops_on()
         wl.trace_hooks(tracer, model)
         wl.span = tracer.span

@@ -128,6 +128,17 @@ def kernel_roofline(ctx):
     return 100.0 * p['op_bound_s'] / p['op_device_s']
 
 
+def wrapper_roofline(ctx, label: str):
+    """One kernel wrapper's (``<module>.<wrapper>``, a key of the cell's
+    rules) summed bound time over its summed device time in the profile,
+    in %; None where the profile holds no device time of it."""
+    p = ctx.profile
+    rec = p['per_op'].get(label) if p else None
+    if rec is None or rec[1] <= 0:
+        return None
+    return 100.0 * rec[0] / rec[1]
+
+
 def device_idle(ctx):
     p = ctx.profile
     if not p or p['window_s'] <= 0 or p['busy_s'] <= 0:

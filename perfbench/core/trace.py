@@ -101,10 +101,15 @@ def at_host_position(named: dict, host_pos: Optional[int]) -> dict:
 
 
 class Tracer:
-    def __init__(self, profile_seconds: float, counters: Callable[[], dict] = dict):
-        """``counters()`` gives the program's recorder's counters now."""
+    def __init__(self, profile_seconds: float, counters: Callable[[], dict] = dict,
+                 rules: dict = roofline.RULES, kernels: dict = roofline.KERNELS):
+        """``counters()`` gives the program's recorder's counters now;
+        ``rules`` and ``kernels``: the wrappers to wrap and their kernels,
+        shaped like ``roofline.RULES`` and ``roofline.KERNELS`` (a cell's
+        are ``Cell.rules`` and ``Cell.kernels``)."""
         self.profile_seconds = profile_seconds
         self.program_counters = counters
+        self.rules, self.kernels = rules, kernels
         self.on_card = torch.cuda.is_available()
         self.spans = collections.defaultdict(lambda: [0.0, 0])
         self.counters = collections.Counter()
@@ -198,9 +203,9 @@ class Tracer:
         return self.on_card and torch.cuda.is_current_stream_capturing()
 
     def ops_on(self):
-        """Wrap every kernel wrapper of ``ops/`` that roofline.py knows."""
+        """Wrap every kernel wrapper of ``ops/`` that the tracer has a rule for."""
         import importlib
-        for (mod_name, attr), rule in roofline.RULES.items():
+        for (mod_name, attr), rule in self.rules.items():
             mod = importlib.import_module(f'stable_ts_tpu_torch.ops.{mod_name}')
             label = f'{mod_name}.{attr}'
 
@@ -297,7 +302,7 @@ class Tracer:
         self._stopped = None
         spans = self.intervals + [(s.name, s.start_ns, s.end_ns) for s in program_spans]
         self.profile = read_profile(prof, t0, t1, self._calib, spans, self.op_calls,
-                                    self.replays)
+                                    self.replays, self.kernels)
 
 
 def _union(intervals):
@@ -331,23 +336,25 @@ def innermost(intervals: List, points: List) -> List:
     return out
 
 
-def _labels_by_kernel() -> Dict[str, set]:
+def _labels_by_kernel(kernels: dict) -> Dict[str, set]:
     out = collections.defaultdict(set)
-    for (mod, attr), names in roofline.KERNELS.items():
+    for (mod, attr), names in kernels.items():
         for n in names:
             out[n].add(f'{mod}.{attr}')
     return out
 
 
-def match_replay(kernels: List, calls: List) -> tuple:
+def match_replay(kernels: List, calls: List,
+                 by_wrapper: dict = roofline.KERNELS) -> tuple:
     """Pair a replay's kernels, (name, seconds) in the order they ran, with
-    its capture's wrapper calls, in order and by kernel name
-    (``roofline.KERNELS``). A wrapper's kernel goes to the next call if
-    that call's wrapper launches it, else to the call before if that one's
-    does (a wrapper of several kernels); other kernels of a wrapper are
-    unmatched. Returns ({call index: seconds}, [unmatched kernel names],
-    calls left without a kernel)."""
-    by_kernel = _labels_by_kernel()
+    its capture's wrapper calls, in order and by kernel name (each
+    wrapper's kernels in ``by_wrapper``, shaped like ``roofline.KERNELS``).
+    A wrapper's kernel goes to the next call if that call's wrapper
+    launches it, else to the call before if that one's does (a wrapper of
+    several kernels); other kernels of a wrapper are unmatched. Returns
+    ({call index: seconds}, [unmatched kernel names], calls left without a
+    kernel)."""
+    by_kernel = _labels_by_kernel(by_wrapper)
     times, unmatched, j = collections.defaultdict(float), [], 0
     for name, sec in kernels:
         labels = by_kernel.get(roofline.kernel_function(name))
@@ -364,7 +371,8 @@ def match_replay(kernels: List, calls: List) -> tuple:
 
 
 def read_profile(prof, t0_ns: int, t1_ns: int, calib_ns: int,
-                 intervals: List, op_calls: List, replays: List = ()) -> Dict:
+                 intervals: List, op_calls: List, replays: List = (),
+                 by_wrapper: dict = roofline.KERNELS) -> Dict:
     """Busy and idle time, device time by kernel name and by span, and the
     device time of each kernel-wrapper call, from the profiler's events in
     memory. Host clocks are moved to the profiler's by the ``pb.calib``
@@ -375,7 +383,8 @@ def read_profile(prof, t0_ns: int, t1_ns: int, calib_ns: int,
     its correlation id; the decoder step call (``replays``) whose host
     clock holds the launch gives the capture's wrapper calls and the host
     position at which their rules count. Wrapper kernels matched to no
-    call are counted by name (``unmatched``)."""
+    call are counted by name (``unmatched``); ``by_wrapper`` names each
+    wrapper's kernels, shaped like ``roofline.KERNELS``."""
     events = prof.profiler.kineto_results.events()
     launch_start = {}      # CUDA runtime call on the host, by correlation id
     graph_start = {}       # cudaGraphLaunch on the host, by correlation id
@@ -425,7 +434,7 @@ def read_profile(prof, t0_ns: int, t1_ns: int, calib_ns: int,
     ranges.sort()
     starts = [r[0] for r in ranges]
     call_time = collections.defaultdict(float)
-    wrapper_kernel = set(_labels_by_kernel())
+    wrapper_kernel = set(_labels_by_kernel(by_wrapper))
     unmatched = collections.Counter()
     graph_kernels = collections.defaultdict(list)
     for s, e, name, corr in in_window:
@@ -479,7 +488,7 @@ def read_profile(prof, t0_ns: int, t1_ns: int, calib_ns: int,
             continue
         n_replays += 1
         calls = step[3]
-        times, left, n_left = match_replay(kernels, calls)
+        times, left, n_left = match_replay(kernels, calls, by_wrapper)
         unmatched.update(left)
         calls_left += n_left
         for i, t in times.items():

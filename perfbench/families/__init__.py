@@ -16,7 +16,14 @@ A family module gives the harness what it must know of one kind of model:
   the program keeps none);
 - ``tiny(cfg)``: the configuration shrunk in place for the CPU tests;
 - ``check_config(cfg)``: raises ``ValueError`` where the file is not a
-  configuration of the family.
+  configuration of the family;
+- optionally ``RULES`` and ``KERNELS``, shaped like ``roofline.py``'s:
+  the bytes and operations of each ``ops/`` wrapper that only this
+  family's model calls, and the kernels each launches. A cell's traced run
+  wraps and matches ``roofline.RULES`` joined with them (``Cell.rules``,
+  ``Cell.kernels``); a wrapper in both raises. A share of one wrapper's
+  roofline is then a metric file that returns
+  ``readers.wrapper_roofline(ctx, '<module>.<wrapper>')``.
 
 The traffic kind (``perfbench/generators/<kind>.py``) is given the
 configuration's ``dims`` and serves the model that ``build`` returns.

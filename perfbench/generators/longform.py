@@ -19,6 +19,50 @@ from perfbench.core.workload import Workload as Base
 
 N_SAMPLES = 480000
 
+# the per-layer metrics a CPU run cannot report: it records no CUDA
+# events and its profile holds no device time
+CARD_ONLY = ('encoder_device_ms_per_window.transcribe', 'kernel_roofline.transcribe',
+             'device_idle.transcribe')
+
+
+def tiny(params: dict) -> None:
+    """The mix shrunk in place for the CPU tests: two short files, a few
+    tokens a window, two windows a group."""
+    params.update(minutes=[1.2, 0.7], sample_len=[8, 10], batch_size=2,
+                  warmup_sample_len=3, check_windows=3)
+
+
+def break_tokens(monkeypatch):
+    """Every third greedy pick moved to the id below."""
+    from stable_ts_tpu_torch.models.whisper import decoding
+    orig = decoding.select_from_aggregates
+    calls = [0]
+
+    def altered(agg, with_grammar=True):
+        tok, lp = orig(agg, with_grammar)
+        calls[0] += 1
+        return ((tok - 1).clamp(min=0) if calls[0] % 3 == 0 else tok), lp
+    monkeypatch.setattr(decoding, 'select_from_aggregates', altered)
+
+
+def break_no_speech(monkeypatch):
+    """Each window's no-speech probability, an answer of the decode, scaled
+    tenfold where the results are built."""
+    from stable_ts_tpu_torch import loaders
+    orig = loaders._decode_collect
+
+    def altered(pending, with_features=True):
+        results = orig(pending, with_features=with_features)
+        for r in results:
+            r.no_speech_prob *= 10.0
+        return results
+    monkeypatch.setattr(loaders, '_decode_collect', altered)
+
+
+# the faults the CPU tests plant in the timed path: a greedy step's token,
+# and an answer of the decode where the results are built
+FAULTS = (break_tokens, break_no_speech)
+
 
 class Workload(Base):
     kind = 'longform'

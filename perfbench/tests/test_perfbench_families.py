@@ -1,22 +1,32 @@
 """The model-family seam (``perfbench/families/<family>.py``).
 
 A family that is not Whisper runs a whole cell on the CPU through
-``run_cell``: a stub family (a plain-torch frame classifier judged by its
-own f64 reference) and a stub traffic kind, written to a temporary folder
-and found by name through the harness's lookup, with no file of the
-benchmark edited. The Whisper family serves the tokens and gives the
-compared numbers of the model and judge built by hand as the harness
-built them before the seam. A configuration that names no family, or an
-unknown one, raises before the CUDA context is made and before any
-weights are drawn.
+``run_cell``: a stub family (a plain-torch frame classifier that smooths
+its frames with the port's median filter, judged by its own f64
+reference), its own roofline rule for that filter, a stub traffic kind
+with its test hooks, and a metric of the rule's share. Written to a
+temporary folder, they are found by name through the harness's lookup;
+added as new files and entries to a copy of the checkout, the
+benchmark's own tests take the stub cell with no existing file edited.
+The Whisper family serves the tokens and gives the compared numbers of
+the model and judge built by hand as the harness built them before the
+seam, and its cells wrap and match ``roofline.py``'s rules alone. A
+configuration that names no family, or an unknown one, raises before the
+CUDA context is made and before any weights are drawn.
 """
 import json
+import os
+import shutil
+import subprocess
+import sys
 import time
+import xml.etree.ElementTree as ET
 from pathlib import Path
 
 import pytest
 import torch
 
+from perfbench import roofline
 from perfbench.core import cell as cell_mod
 from perfbench.core import weights
 from perfbench.core.engine import run_cell
@@ -26,11 +36,32 @@ ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / 'BENCHMARK.json').read_text())
 
 STUB_FAMILY = '''
-"""A frame classifier: 20-ms frames of samples, a GELU layer, log-softmax
-over a small vocabulary; judged by its f64 reference."""
+"""A frame classifier: 20-ms frames of samples, a GELU layer, a median
+filter along the frames (the port's ``ops.median.median_filter``, looked
+up on its module at each call), log-softmax over a small vocabulary;
+judged by its plain reference (``reference/framenet.py``) in f64, the
+control in bf16. Its own roofline rule covers the median filter, which
+``roofline.py`` leaves out."""
 import time
+from pathlib import Path
 
 import torch
+
+from perfbench import roofline
+from perfbench.core.cell import _load_module
+from stable_ts_tpu_torch.ops import median
+
+reference = _load_module(Path(__file__).resolve().parents[1] / 'reference' / 'framenet.py',
+                         'perfbench_reference_framenet')
+
+
+def median_filter(x, filter_width=7):
+    """Each input and output byte once; a comparison an entry of each window."""
+    return 2 * x.numel() * x.element_size(), x.numel() * filter_width, roofline.PEAK_F32
+
+
+RULES = {('median', 'median_filter'): median_filter}
+KERNELS = {('median', 'median_filter'): ('bitonicSortKVInPlace',)}
 
 
 def _weights(dims, seed, dtype, device):
@@ -41,8 +72,8 @@ def _weights(dims, seed, dtype, device):
 
 
 class Model:
-    def __init__(self, w1, w2):
-        self.w1, self.w2 = w1, w2
+    def __init__(self, w1, w2, width):
+        self.w1, self.w2, self.width = w1, w2, width
 
     def __call__(self, pcm):
         return self.forward(pcm)
@@ -50,8 +81,60 @@ class Model:
     def forward(self, pcm):
         frame = self.w1.shape[0]
         x = pcm[:len(pcm) // frame * frame].view(-1, frame).to(self.w1)
-        logits = torch.nn.functional.gelu(x @ self.w1) @ self.w2
-        return torch.log_softmax(logits.double(), -1)
+        h = median.median_filter(torch.nn.functional.gelu(x @ self.w1).T, self.width).T
+        return torch.log_softmax((h @ self.w2).double(), -1)
+
+
+def build(cfg, seed, dtype, device):
+    model = Model(*_weights(cfg['dims'], seed, dtype, device), cfg['dims']['width'])
+    return model, [('drawn', time.perf_counter())]
+
+
+def judge(cfg, seed, dtype, device, control=False):
+    w1, w2 = _weights(cfg['dims'], seed, dtype, device)
+    low = torch.bfloat16 if control else torch.float64
+    return reference.Judge(reference.Model(w1.to(low), w2.to(low), cfg['dims']['width']))
+
+
+def host_phases():
+    return {}
+
+
+def tiny(cfg):
+    pass
+
+
+def check_config(cfg):
+    if set(cfg['dims']) != {'frame', 'd', 'vocab', 'width'}:
+        raise ValueError(f"dims {sorted(cfg['dims'])}")
+'''
+
+STUB_REFERENCE = '''
+"""The frame classifier's plain reference, in the precision of the
+weights it is given."""
+import torch
+import torch.nn.functional as F
+
+
+def median_filter(x, width):
+    """The median of each window of ``width`` along the last axis, the ends
+    reflected; ``x`` itself where it is no longer than half the width."""
+    pad = width // 2
+    if x.shape[-1] <= pad:
+        return x
+    padded = F.pad(x[None], (pad, pad), mode='reflect')[0]
+    return padded.unfold(-1, width, 1).median(-1).values
+
+
+class Model:
+    def __init__(self, w1, w2, width):
+        self.w1, self.w2, self.width = w1, w2, width
+
+    def __call__(self, pcm):
+        frame = self.w1.shape[0]
+        x = pcm[:len(pcm) // frame * frame].view(-1, frame).to(self.w1)
+        h = median_filter(F.gelu(x @ self.w1).T, self.width).T
+        return torch.log_softmax((h @ self.w2).double(), -1)
 
 
 class Judge:
@@ -65,30 +148,6 @@ class Judge:
 
     def outputs(self, items):
         return [dict(it, logprobs=self.model(it['pcm'])) for it in items]
-
-
-def build(cfg, seed, dtype, device):
-    model = Model(*_weights(cfg['dims'], seed, dtype, device))
-    return model, [('drawn', time.perf_counter())]
-
-
-def judge(cfg, seed, dtype, device, control=False):
-    w1, w2 = _weights(cfg['dims'], seed, dtype, device)
-    low = torch.bfloat16 if control else torch.float64
-    return Judge(Model(w1.to(low), w2.to(low)))
-
-
-def host_phases():
-    return {}
-
-
-def tiny(cfg):
-    pass
-
-
-def check_config(cfg):
-    if set(cfg['dims']) != {'frame', 'd', 'vocab'}:
-        raise ValueError(f"dims {sorted(cfg['dims'])}")
 '''
 
 STUB_KIND = '''
@@ -97,6 +156,23 @@ import numpy as np
 import torch
 
 from perfbench.core.workload import Workload as Base
+
+CARD_ONLY = ('median_roofline.stub',)
+
+
+def tiny(params):
+    params['seconds'] = [s / 10 for s in params['seconds']]
+
+
+def shift_medians(monkeypatch):
+    """Each median filter's output moved one frame on where it is made."""
+    from stable_ts_tpu_torch.ops import median
+    orig = median.median_filter
+    monkeypatch.setattr(median, 'median_filter',
+                        lambda x, filter_width=7: orig(x, filter_width).roll(1, dims=-1))
+
+
+FAULTS = (shift_medians,)
 
 
 class Workload(Base):
@@ -126,6 +202,50 @@ class Workload(Base):
 '''
 
 
+def _reader(call: str) -> str:
+    return f'''"""The stub cell's {call}."""
+from perfbench.core import readers
+
+
+def read(ctx):
+    return readers.{call}
+'''
+
+
+STUB_CONFIG = dict(name='stub', source='https://example.com/stub-frame-classifier',
+                   family='framenet', dtype='float32',
+                   dims=dict(frame=320, d=48, vocab=32, width=5), reduced=[],
+                   reference='perfbench/reference/framenet.py')
+
+# the stub cell's files under perfbench/, its configuration left out
+STUB_FILES = {
+    'families/framenet.py': STUB_FAMILY,
+    'reference/framenet.py': STUB_REFERENCE,
+    'generators/frames.py': STUB_KIND,
+    'traffic/frames.json': json.dumps(dict(kind='frames', seconds=[5.0, 3.0, 4.0],
+                                           check_items=2)),
+    # f64 reference against the program's f32: rounding reads ~4e-8 (four
+    # seeds); the bf16 control 3.6e-4-5.1e-4, the fault far more
+    'limits/stub.frames.json': json.dumps(dict(logprob_gap=dict(limit=1e-4))),
+    'metrics/stub_audio_s_per_s.py': _reader('audio_rate(ctx)'),
+    'metrics/median_roofline.stub.py': _reader(
+        "wrapper_roofline(ctx, 'median.median_filter')"),
+}
+
+# and its entries in BENCHMARK.json
+STUB_ENTRIES = dict(
+    configs=[dict(name='stub', source=STUB_CONFIG['source'],
+                  file='perfbench/configs/stub.json', reduced=[],
+                  why='a second family: a frame classifier, a roofline rule of its own')],
+    workloads=[dict(name='stub.frames', config='stub', traffic='frames', chips=1,
+                    why='short clips, every frame judged: the family, its rule, its kind')],
+    end_to_end=[dict(name='stub_audio_s_per_s', unit='audio_s/s', better='higher',
+                     bound=0.25, source='host_clock', workloads=['stub.frames'])],
+    per_layer=[dict(name='median_roofline.stub', unit='%', better='higher',
+                    source='device_trace', layer='kernels (ops/ and csrc/)',
+                    moves='stub_audio_s_per_s', workloads=['stub.frames'])])
+
+
 def _write(path: Path, text: str) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
@@ -146,20 +266,12 @@ def _bench(root: Path, config: dict, workload: str, traffic: str) -> None:
 
 @pytest.fixture
 def stub_root(tmp_path, monkeypatch):
-    """A checkout root holding the stub's configuration, family, kind, mix
-    and limits; the harness's lookup finds a name there first."""
+    """A checkout root holding the stub cell's files and a BENCHMARK.json
+    of that cell alone; the harness's lookup finds a name there first."""
     pb = tmp_path / 'perfbench'
-    _write(pb / 'families' / 'framenet.py', STUB_FAMILY)
-    _write(pb / 'generators' / 'frames.py', STUB_KIND)
-    _write(pb / 'traffic' / 'frames.json',
-           json.dumps(dict(kind='frames', seconds=[0.5, 0.3, 0.4], check_items=2)))
-    # f64 reference against the program's f32: rounding reads ~1e-6; the
-    # bf16 control reads ~7e-4, the fault far more
-    _write(pb / 'limits' / 'stub.frames.json',
-           json.dumps(dict(logprob_gap=dict(limit=1e-4))))
-    _bench(tmp_path, dict(name='stub', family='framenet', dtype='float32',
-                          dims=dict(frame=320, d=48, vocab=32), reduced=[]),
-           'stub.frames', 'frames')
+    for rel, text in STUB_FILES.items():
+        _write(pb / rel, text)
+    _bench(tmp_path, STUB_CONFIG, 'stub.frames', 'frames')
     find = cell_mod.find
 
     def find_stub_first(folder, name, suffix='.py'):
@@ -170,8 +282,12 @@ def stub_root(tmp_path, monkeypatch):
 
 
 def _run_stub(root, configure=None, with_control=False):
+    def tiny(cell):
+        shrink(cell)
+        if configure is not None:
+            configure(cell)
     return run_cell(root, 'stub.frames', SEED, 0.2, False, time.perf_counter(),
-                    device='cpu', configure=configure, log=lambda m: None,
+                    device='cpu', configure=tiny, log=lambda m: None,
                     with_control=with_control)
 
 
@@ -251,7 +367,15 @@ def _by_hand(name, n_requests):
     return wl.served, wl.check(judge, items)
 
 
-@pytest.mark.parametrize('name', [w['name'] for w in BENCH['workloads']])
+def _family(workload: dict) -> str:
+    entry = next(c for c in BENCH['configs'] if c['name'] == workload['config'])
+    return json.loads((ROOT / entry['file']).read_text())['family']
+
+
+WHISPER_CELLS = [w['name'] for w in BENCH['workloads'] if _family(w) == 'whisper']
+
+
+@pytest.mark.parametrize('name', WHISPER_CELLS)
 def test_whisper_family_matches_the_hand_built_model(name):
     kept = []
 
@@ -273,3 +397,94 @@ def test_whisper_family_matches_the_hand_built_model(name):
     assert [r['scores'] for r in wl.served] == [r['scores'] for r in served]
     assert {k: c['value'] for k, c in out['compared'].items()} == {
         k: numbers[k] for k in out['compared']}
+
+
+@pytest.mark.parametrize('name', WHISPER_CELLS)
+def test_whisper_cells_wrap_the_roofline_rules_alone(name):
+    cell = cell_mod.Cell(BENCH, name, ROOT)
+    assert cell.rules == roofline.RULES and cell.kernels == roofline.KERNELS
+
+
+@pytest.mark.parametrize('table', ['RULES', 'KERNELS'])
+def test_family_repeating_a_roofline_wrapper_raises(table, stub_root):
+    family = stub_root / 'perfbench' / 'families' / 'framenet.py'
+    family.write_text(family.read_text() + f"\n{table}[('dtw', 'dtw_cost')] = "
+                      f"{table}[('median', 'median_filter')]\n")
+    bench = json.loads((stub_root / 'BENCHMARK.json').read_text())
+    with pytest.raises(KeyError, match='dtw'):
+        cell_mod.Cell(bench, 'stub.frames', stub_root)
+
+
+def _files(folder: Path) -> dict:
+    """Every file under ``folder`` but caches, by its path inside it."""
+    return {p.relative_to(folder).as_posix(): p.read_bytes()
+            for p in sorted(folder.rglob('*')) if p.is_file()
+            and not {'__pycache__', '.pytest_cache'} & set(p.relative_to(folder).parts)}
+
+
+# the benchmark's tests that take the stub cell up by its names
+STUB_TESTS = {
+    'test_config[stub]', 'test_cell[stub.frames]', 'test_metric[stub_audio_s_per_s]',
+    'test_metric[median_roofline.stub]', 'test_kind_gives_its_test_hooks[stub.frames]',
+    'test_sound_run_is_correct[stub.frames]',
+    'test_fault_is_caught[stub.frames-shift_medians]',
+    'test_traced_run_reports_the_program_metrics[stub.frames]',
+    'test_family_loads_no_jax[framenet-stub]',
+}
+
+
+def test_a_second_family_lands_as_added_files(tmp_path, monkeypatch):
+    """A copy of the checkout's benchmark with the stub cell added as new
+    files and new entries of BENCHMARK.json only: the benchmark's own tests
+    that name the stub cell pass there (the in-process stub tests above,
+    which check that their files stay out of the checkout, are left out),
+    the traced run wraps and calls the stub's median rule, the copy differs
+    from the checkout by the added files and entries alone, and a Whisper
+    cell of the copy wraps no median rule."""
+    tree = tmp_path / 'tree'
+    shutil.copytree(ROOT / 'perfbench', tree / 'perfbench',
+                    ignore=shutil.ignore_patterns('__pycache__', '.pytest_cache'))
+    added = dict(STUB_FILES, **{'configs/stub.json': json.dumps(STUB_CONFIG)})
+    for rel, text in added.items():
+        with open(tree / 'perfbench' / rel, 'x') as f:     # never a file of the checkout
+            f.write(text)
+    bench = json.loads((ROOT / 'BENCHMARK.json').read_text())
+    for key, entries in STUB_ENTRIES.items():
+        bench[key] = bench[key] + entries
+    (tree / 'BENCHMARK.json').write_text(json.dumps(bench, indent=1))
+
+    junit = tmp_path / 'junit.xml'
+    env = {k: v for k, v in os.environ.items() if not k.startswith('PYTEST_')}
+    env['PYTHONPATH'] = os.pathsep.join(filter(None, [str(ROOT), env.get('PYTHONPATH')]))
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pytest', str(tree / 'perfbench' / 'tests'), '-q',
+         '-p', 'no:cacheprovider', '-p', 'no:randomly', '-k', 'stub and not stub_family',
+         f'--junitxml={junit}', '-o', 'junit_family=xunit1'],   # xunit1 keeps properties
+        cwd=tree, env=env, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-6000:] + proc.stderr[-3000:]
+    cases = {c.get('name'): c for c in ET.parse(junit).iter('testcase')}
+    passed = {n for n, c in cases.items()
+              if not any(e.tag in ('failure', 'error', 'skipped') for e in c)}
+    assert STUB_TESTS <= passed, sorted(cases)
+    traced = cases['test_traced_run_reports_the_program_metrics[stub.frames]']
+    calls = json.loads(next(p.get('value') for p in traced.iter('property')
+                            if p.get('name') == 'wrapper_calls'))
+    assert calls.get('median.median_filter', 0) > 0, calls
+
+    checkout, copy = _files(ROOT / 'perfbench'), _files(tree / 'perfbench')
+    assert set(checkout) <= set(copy) and set(copy) - set(checkout) == set(added)
+    assert {k: copy[k] for k in checkout} == checkout
+    bench = json.loads((tree / 'BENCHMARK.json').read_text())
+    assert {k: v[:len(BENCH[k])] if k in STUB_ENTRIES else v
+            for k, v in bench.items()} == BENCH
+    assert {k: bench[k][len(BENCH[k]):] for k in STUB_ENTRIES} == STUB_ENTRIES
+
+    monkeypatch.setattr(cell_mod, 'HERE', tree / 'perfbench')
+    stub = cell_mod.Cell(bench, 'stub.frames', tree)
+    assert stub.rules == {**roofline.RULES, **stub.family.RULES}
+    median = ('median', 'median_filter')
+    assert median in stub.rules and median in stub.kernels
+    for name in WHISPER_CELLS:
+        cell = cell_mod.Cell(bench, name, tree)
+        assert cell.rules == roofline.RULES and cell.kernels == roofline.KERNELS
+        assert median not in cell.rules

@@ -2,17 +2,19 @@
 look for a card: ``correct`` is true as the program stands and false with
 the timed path broken underneath, once for each fault the cell can have.
 Inference cells have one: a token or an answer altered where it is
-produced (the training and multi-chip faults do not apply), planted here
-twice in the long-form cells: a greedy step's token, and the no-speech
-probability. The limits are the committed ones of each cell: the widest
-distance of a log-probability the decode answered with (each served
-token's and each window's no-speech) from the reference's."""
+produced (the training and multi-chip faults do not apply). The cell's
+traffic kind plants it (``FAULTS`` of ``perfbench/generators/<kind>.py``;
+the long-form kind twice: a greedy step's token, and the no-speech
+probability). The limits are the committed ones of each cell (long-form:
+the widest distance of a log-probability the decode answered with, each
+served token's and each window's no-speech, from the reference's)."""
 import json
 import time
 from pathlib import Path
 
 import pytest
 
+from perfbench.core.cell import _load_module, find
 from perfbench.core.engine import run_cell
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -23,10 +25,7 @@ SEED = 2**31 + 4099
 def shrink(cell):
     """The family's tiny model, and the traffic kind's tiny mix."""
     cell.family.tiny(cell.config)
-    t = cell.traffic
-    if t['kind'] == 'longform':
-        t.update(minutes=[1.2, 0.7], sample_len=[8, 10], batch_size=2,
-                 warmup_sample_len=3, check_windows=3)
+    cell.kind.tiny(cell.traffic)
 
 
 def run(name, seconds=0.5):
@@ -35,40 +34,23 @@ def run(name, seconds=0.5):
 
 
 def kind(name):
+    """The traffic kind's module of cell ``name``."""
     w = next(w for w in BENCH['workloads'] if w['name'] == name)
-    return json.loads((ROOT / 'perfbench' / 'traffic'
-                       / f"{w['traffic']}.json").read_text())['kind']
+    k = json.loads(find('traffic', w['traffic'], '.json').read_text())['kind']
+    return _load_module(find('generators', k), f'test_kind_{k}')
 
 
-def break_tokens(monkeypatch):
-    """Every third greedy pick moved to the id below."""
-    from stable_ts_tpu_torch.models.whisper import decoding
-    orig = decoding.select_from_aggregates
-    calls = [0]
-
-    def altered(agg, with_grammar=True):
-        tok, lp = orig(agg, with_grammar)
-        calls[0] += 1
-        return ((tok - 1).clamp(min=0) if calls[0] % 3 == 0 else tok), lp
-    monkeypatch.setattr(decoding, 'select_from_aggregates', altered)
+# a kind without its hooks fails its own test below, not the collection
+CASES = [(w['name'], f) for w in BENCH['workloads']
+         for f in getattr(kind(w['name']), 'FAULTS', ())]
 
 
-def break_no_speech(monkeypatch):
-    """Each window's no-speech probability, an answer of the decode, scaled
-    tenfold where the results are built."""
-    from stable_ts_tpu_torch import loaders
-    orig = loaders._decode_collect
-
-    def altered(pending, with_features=True):
-        results = orig(pending, with_features=with_features)
-        for r in results:
-            r.no_speech_prob *= 10.0
-        return results
-    monkeypatch.setattr(loaders, '_decode_collect', altered)
-
-
-FAULTS = {'longform': [break_tokens, break_no_speech]}
-CASES = [(w['name'], f) for w in BENCH['workloads'] for f in FAULTS[kind(w['name'])]]
+@pytest.mark.parametrize('name', [w['name'] for w in BENCH['workloads']])
+def test_kind_gives_its_test_hooks(name):
+    mod = kind(name)
+    assert callable(mod.tiny) and mod.FAULTS and all(map(callable, mod.FAULTS))
+    per_layer = {m['name'] for m in BENCH['per_layer']}
+    assert set(mod.CARD_ONLY) <= per_layer
 
 
 @pytest.mark.parametrize('name', [w['name'] for w in BENCH['workloads']])

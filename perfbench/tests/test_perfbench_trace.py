@@ -3,6 +3,7 @@ host position handed to a rule, graph replays matched to their capture's
 wrapper calls in a synthetic profile, idle gaps named by the innermost
 span of the harness's and the program's, and the readers of the
 program's recorder."""
+import collections
 import functools
 import json
 import time
@@ -364,6 +365,15 @@ def test_reader_by_hand(name):
     assert read(SimpleNamespace(recording=Recording())) is None
 
 
+def test_wrapper_roofline_reads_one_wrapper():
+    ctx = SimpleNamespace(profile=dict(per_op={'median.median_filter': (1e-6, 4e-6, 3),
+                                               'dtw.dtw_cost': (1e-6, 0.0, 1)}))
+    assert readers.wrapper_roofline(ctx, 'median.median_filter') == pytest.approx(25.0)
+    assert readers.wrapper_roofline(ctx, 'dtw.dtw_cost') is None       # no device time
+    assert readers.wrapper_roofline(ctx, 'vocab_proj.vocab_proj') is None
+    assert readers.wrapper_roofline(SimpleNamespace(profile=None), 'dtw.dtw_cost') is None
+
+
 def test_readers_without_their_spans_or_counters():
     rec = _recording()
     rec.counters.pop('batched.windows_real')
@@ -384,17 +394,43 @@ BENCH = json.loads((ROOT / 'BENCHMARK.json').read_text())
 
 
 @pytest.mark.parametrize('name', [w['name'] for w in BENCH['workloads']])
-def test_traced_run_reports_the_program_metrics(name):
+def test_traced_run_reports_the_program_metrics(name, monkeypatch, record_property):
+    """Every per-layer metric of the cell but its kind's ``CARD_ONLY`` is
+    reported, and those are absent (never 0); every wrapper of the cell's
+    family's own rules was wrapped and called in the profiled requests
+    (their counts go to the JUnit record as ``wrapper_calls``)."""
+    from perfbench.core import engine
     from perfbench.tests.test_perfbench_faults import SEED, shrink
+    cells, tracers = [], []
+
+    class Kept(Tracer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            tracers.append(self)
+    monkeypatch.setattr(engine, 'Tracer', Kept)
+
+    def configure(cell):
+        shrink(cell)
+        cells.append(cell)
     out = run_cell(ROOT, name, SEED, 1.5, True, time.perf_counter(), device='cpu',
-                   configure=shrink, log=lambda m: None)
+                   configure=configure, log=lambda m: None)
     assert out['correct'], out['compared']
+    (cell,), (tracer,) = cells, tracers
     metrics = out['metrics']
-    # the CPU records no CUDA events, so no encoder device time: absent, never 0
-    on_cpu = set(NEW) - {'encoder_device_ms_per_window.transcribe'}
-    assert on_cpu <= set(metrics)
-    assert 'encoder_device_ms_per_window.transcribe' not in metrics
-    assert metrics['decode_graph_share.transcribe']['value'] == 0.0   # the CPU is eager
+    card_only = set(cell.kind.CARD_ONLY)
+    listed = {m['name'] for m in cell.per_layer}
+    assert listed - card_only <= set(metrics)
+    assert not card_only & set(metrics)
+    # the program's recorder's readers, where the cell lists them
+    on_cpu = (set(NEW) & listed) - card_only
+    if 'decode_graph_share.transcribe' in on_cpu:
+        # the CPU is eager
+        assert metrics['decode_graph_share.transcribe']['value'] == 0.0
     assert all(metrics[m]['value'] > 0 for m in on_cpu - {'decode_graph_share.transcribe'})
+    assert tracer.rules is cell.rules and tracer.kernels is cell.kernels
+    calls = collections.Counter(label for label, *_ in tracer.op_calls)
+    record_property('wrapper_calls', json.dumps(calls))
     if out['attempted'] > 1:          # the profile starts at the second request
         assert 'breakdown' in out
+        own = set(cell.rules) - set(roofline.RULES)
+        assert all(calls[f'{mod}.{attr}'] > 0 for mod, attr in own), calls
